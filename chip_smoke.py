@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (kubernetes_scheduler_tpu_torch) on
+one CUDA card:  python3 chip_smoke.py
+
+Phases; the first failure exits non-zero and no result line is printed:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: compile csrc/fused.cu with nvcc (first use) and load it;
+3. kernels: each hand-written kernel (K1 masked_score, K2 row_stats,
+   K3 auction_bid) against its plain PyTorch version on the card, at the
+   main path's shapes (1,024 pods x 10,000 nodes x 3 resources of the
+   gpu-10kx10k config), bitwise; CUDA-event times, median of 25 launches;
+4. the slice through TorchEngine(): schedule_batch on one 1,024-pod
+   window and schedule_windows on the 8 x 1,024-pod backlog (the main
+   path; the launch counts are read from this run), each equal to the
+   same call on the plain versions; one cycle and one backlog under
+   torch.profiler; a small cluster scheduled on the card must equal the
+   port's CPU path, which the tests hold against the JAX reference;
+5. the kernels line, then the result line.
+
+Needs torch with CUDA, and nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+WINDOW = 1024
+N_WINDOWS = 8
+TIMED_LAUNCHES = 25
+SLICE_KW = dict(
+    assigner="auction", normalizer="min_max", fused=True, affinity_aware=False
+)
+REPLACES = {
+    "masked_score": "kubernetes_scheduler_tpu/ops/pallas_fused.py:252",
+    "row_stats": "kubernetes_scheduler_tpu/ops/pallas_fused.py:385",
+    "auction_bid": "kubernetes_scheduler_tpu/ops/pallas_fused.py:581",
+}
+# each kernel's case on the main path, reported in the kernels line
+MAIN_CASE = {
+    "masked_score": "S=1 minmax=True",
+    "row_stats": "gpu-10kx10k window",
+    "auction_bid": "first round",
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """Median ms of `n` single calls, each bracketed by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_ms(torch, fn, n: int = 3) -> tuple[list, object]:
+    """Host ms of `n` synchronized calls, and the last result."""
+    times, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def device_profile(torch, fn, wall_unprofiled_ms: float) -> dict:
+    """One call of `fn` under torch.profiler: device time by kernel, the
+    number of device kernels, and the device's idle share of the call's
+    wall time (against the profiled and the unprofiled wall time). Device
+    numbers are None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    n_kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not n_kernels:
+        return {"profiled_wall_ms": wall, "device_busy_ms": None,
+                "device_kernels": 0, "idle_share": None}
+    busy = sum(by_name.values())
+    ours = {k: sum(v for name, v in by_name.items() if f"{k}_kernel" in name)
+            for k in REPLACES}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "profiled_wall_ms": wall, "device_busy_ms": busy,
+        "device_kernels": n_kernels,
+        "idle_share_profiled": 1.0 - busy / wall,
+        "idle_share": 1.0 - busy / wall_unprofiled_ms,
+        "port_kernels_ms": ours,
+        "other_device_ms": busy - sum(ours.values()),
+        "top_device_ms": [[name[:80], ms] for name, ms in top],
+    }
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) at the published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def same(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def max_abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
+    """Phase 3: {kernel: [result line per case]}."""
+    fused, NEG = port["fused"], port["NEG"]
+    dev = snap.allocatable.device
+    results: dict = {name: [] for name in REPLACES}
+
+    def record(line, ok):
+        emit(line)
+        results[line["kernel"]].append(line)
+        if not ok:
+            fail(f"{line['kernel']} ({line['case']}) differs from its plain version")
+
+    def k1_inputs(s, w):
+        ops = port["fused_score_operands"](s, w)
+        alpha, beta = port["alpha_beta"](ops["r_cpu"], ops["r_io"])
+        stats = fused.fused_score_row_stats(alpha, beta, ops["u"], ops["v"],
+                                            ops["node_mask"])
+        pos = (alpha, beta, ops["pod_mask"], ops["target_node"], ops["u"],
+               ops["v"], ops["node_mask"], ops["pod_request"], ops["alloc"],
+               ops["reqd"])
+        kw = dict(aff_pod=ops["aff_pod"], aff_node=ops["aff_node"],
+                  other=ops["other"])
+        return pos, kw, stats
+
+    # K1: with and without the min-max epilogue, at S=1 and S=8
+    for tag, (s, w) in (("S=1", (snap, window)), ("S=8", (sel_snap, sel_pods))):
+        pos, kw, stats = k1_inputs(s, w)
+        n_sel = kw["aff_pod"].shape[0] // 4
+        for minmax in (False, True):
+            kwm = dict(kw, stats=stats if minmax else None)
+            got = fused.masked_score(*pos, **kwm)
+            want = fused.masked_score_plain(*pos, **kwm)
+            torch.cuda.synchronize()
+            ok = same(torch, got, want)
+            p, n = got.shape
+            r = pos[7].shape[1]
+            moved = nbytes(*pos, kwm["aff_pod"], kwm["aff_node"], kwm["other"],
+                           kwm["stats"], got)
+            b_ms, b_by = bound(moved, p * n * (5 + 2 * r + n_sel + 1 + 3 * minmax))
+            record({
+                "kernel": "masked_score", "case": f"{tag} minmax={minmax}",
+                "p": p, "n": n, "r": r, "selectors": n_sel,
+                "bitwise": ok, "max_abs_err": max_abs_err(got, want),
+                "kernel_ms": cuda_ms(torch, lambda: fused.masked_score(*pos, **kwm)),
+                "plain_ms": cuda_ms(torch, lambda: fused.masked_score_plain(*pos, **kwm)),
+                "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
+                "feasible_cells": int((want > NEG * 0.5).sum()),
+            }, ok)
+
+    # K2 on the main path's window
+    pos, _, _ = k1_inputs(snap, window)
+    args = (pos[0], pos[1], pos[4], pos[5], pos[6])  # alpha, beta, u, v, node_mask
+    got = fused.row_stats(*args)
+    want = fused.row_stats_plain(*args)
+    torch.cuda.synchronize()
+    ok = same(torch, got, want)
+    p, n = args[0].shape[0], args[2].shape[0]
+    b_ms, b_by = bound(nbytes(*args, got), p * int(args[4].sum()) * 7)
+    record({
+        "kernel": "row_stats", "case": "gpu-10kx10k window", "p": p, "n": n,
+        "bitwise": ok, "max_abs_err": max_abs_err(got, want),
+        "kernel_ms": cuda_ms(torch, lambda: fused.row_stats(*args)),
+        "plain_ms": cuda_ms(torch, lambda: fused.row_stats_plain(*args)),
+        "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
+    }, ok)
+
+    # K3 on the first auction round of the main path's window, then on
+    # rows with planted ties within and across thread strides and blocks
+    raw = fused.fused_masked_score(**port["fused_score_operands"](snap, window),
+                                   normalizer="min_max")
+    sj = port["auction_values"](raw, raw > NEG * 0.5, 1.0)
+    req = window.request.contiguous()
+    free = port["compute_free_capacity"](snap).contiguous()
+    price = torch.zeros(sj.shape[1], dtype=torch.float32, device=dev)
+    p, n = sj.shape
+    r = req.shape[1]
+    tie_sj = sj.clone()
+    tie_rows = torch.arange(0, p, 3, device=dev)
+    first = (tie_rows * 37) % (n // 10)
+    for col in (first, first + 256, first + 2 * n // 5, n - 1 - (tie_rows % 50)):
+        tie_sj[tie_rows, col] = 5.0
+    no_cell = torch.arange(p, device=dev) % 7 == 1
+    tie_sj[no_cell] = NEG                   # rows with no feasible cell
+    tie_active = window.pod_mask.clone()
+    tie_active[2::11] = False               # inactive rows
+    big_free = torch.full_like(free, 3.0e38)
+    for tag, (s_j, act, fr) in (("first round", (sj, window.pod_mask, free)),
+                                ("planted ties", (tie_sj, tie_active, big_free))):
+        k3 = (s_j, price, act, req, fr)
+        got_b, got_h = fused.auction_bid(*k3)
+        want_b, want_h = fused.auction_bid_plain(*k3)
+        torch.cuda.synchronize()
+        ok = same(torch, got_b, want_b) and same(torch, got_h, want_h)
+        if tag == "planted ties":
+            hit = act[tie_rows] & ~no_cell[tie_rows]
+            ok = ok and bool((got_b[tie_rows][hit] == first[hit].int()).all())
+        n_act = int(act.sum())
+        moved = n_act * n * 4 + nbytes(price, act, req, fr) + 8 * p
+        b_ms, b_by = bound(moved, n_act * n * (3 + 2 * r))
+        record({
+            "kernel": "auction_bid", "case": tag, "p": p, "n": n, "r": r,
+            "active": n_act, "bitwise": ok,
+            "max_abs_err": max(max_abs_err(got_b, want_b),
+                               max_abs_err(got_h.int(), want_h.int())),
+            "kernel_ms": cuda_ms(torch, lambda: fused.auction_bid(*k3)),
+            "plain_ms": cuda_ms(torch, lambda: fused.auction_bid_plain(*k3)),
+            "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
+            "bidders": int(got_h.sum()),
+        }, ok)
+    return results
+
+
+def run_slice(torch, port, snap, pods, window) -> dict:
+    """Phase 4: the slice through TorchEngine; returns the main path's
+    kernel launch counts."""
+    fused, TorchEngine = port["fused"], port["TorchEngine"]
+    engine = TorchEngine()
+
+    def check_equal(what, got, want):
+        for field in ("node_idx", "free_after", "n_assigned"):
+            if not same(torch, getattr(got, field), getattr(want, field)):
+                fail(f"{what} {field} differs")
+
+    cycle_runs, res = wall_ms(torch, lambda: engine.schedule_batch(snap, window, **SLICE_KW))
+    check_equal("schedule_batch (vs the plain path)", res,
+                engine.schedule_batch(snap, window, **SLICE_KW, _plain=True))
+    cycle_ms = statistics.median(cycle_runs)
+    emit({"phase": "schedule_batch", "pods": WINDOW,
+          "nodes": snap.allocatable.shape[0], "cycle_ms": cycle_ms,
+          "cycle_ms_runs": cycle_runs, "n_assigned": int(res.n_assigned),
+          "equal_to_plain": True})
+
+    backlog = type(pods)(*[f[: WINDOW * N_WINDOWS] for f in pods])
+    pods_w = port["stack_windows"](backlog, WINDOW)
+    run_backlog = lambda: engine.schedule_windows(snap, pods_w, **SLICE_KW)  # noqa: E731
+    run_backlog()                                             # warm-up
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    main_runs, out = wall_ms(torch, run_backlog, n=1)         # the main path
+    launches = dict(fused.launches)
+    more_runs, _ = wall_ms(torch, run_backlog, n=2)
+    check_equal("schedule_windows (vs the plain path)", out,
+                engine.schedule_windows(snap, pods_w, **SLICE_KW, _plain=True))
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    n_pods = WINDOW * N_WINDOWS
+    n_nodes = snap.allocatable.shape[0]
+    assigned = int(out.n_assigned)
+    if tuple(out.node_idx.shape) != (N_WINDOWS, WINDOW) or bool((out.node_idx >= n_nodes).any()):
+        fail("schedule_windows node_idx has the wrong shape or range")
+    if not bool(torch.isfinite(out.free_after).all()) or bool((out.free_after < 0).any()):
+        fail("schedule_windows free_after is not finite and non-negative")
+    if assigned < 0.5 * n_pods:
+        fail(f"schedule_windows assigned only {assigned}/{n_pods} pods")
+    backlog_runs = main_runs + more_runs
+    backlog_ms = statistics.median(backlog_runs)
+    emit({"phase": "schedule_windows", "windows": N_WINDOWS, "window": WINDOW,
+          "nodes": n_nodes, "backlog_ms": backlog_ms, "backlog_ms_runs": backlog_runs,
+          "pods_per_s": n_pods / (backlog_ms / 1e3), "n_assigned": assigned,
+          "auction_rounds_per_window": launches["auction_bid"] / N_WINDOWS,
+          "launches": launches, "equal_to_plain": True})
+
+    # where the time goes: one cycle and one backlog under torch.profiler
+    emit({"phase": "profile_schedule_batch", **device_profile(
+        torch, lambda: engine.schedule_batch(snap, window, **SLICE_KW), cycle_ms)})
+    emit({"phase": "profile_schedule_windows",
+          **device_profile(torch, run_backlog, backlog_ms)})
+
+    # small cluster: the card's kernel path equals the port's CPU path
+    small = port["gen_cluster"](300, seed=3, gpu=True, device="cpu")
+    small_w = port["stack_windows"](
+        port["gen_pods"](96, seed=4, gpu=True, device="cpu"), 32)
+    cpu_out = TorchEngine(device="cpu").schedule_windows(small, small_w, **SLICE_KW)
+    gpu_out = engine.schedule_windows(small, small_w, **SLICE_KW)
+    check_equal("small cluster (card vs CPU path)",
+                type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
+    emit({"phase": "card_vs_cpu", "nodes": 300, "pods": 96,
+          "n_assigned": int(gpu_out.n_assigned), "equal": True})
+    return launches
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    try:
+        from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
+        from kubernetes_scheduler_tpu_torch.engine import (
+            compute_free_capacity,
+            fused_score_operands,
+        )
+        from kubernetes_scheduler_tpu_torch.ops import _build, fused
+        from kubernetes_scheduler_tpu_torch.ops.assign import NEG, auction_values
+        from kubernetes_scheduler_tpu_torch.ops.score import alpha_beta
+        from kubernetes_scheduler_tpu_torch.sim import gen_cluster, gen_config, gen_pods
+    except ImportError as e:
+        fail(f"the port is not importable (run from the repository root): {e}")
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    port = dict(
+        TorchEngine=TorchEngine, stack_windows=stack_windows, fused=fused,
+        compute_free_capacity=compute_free_capacity, NEG=NEG,
+        fused_score_operands=fused_score_operands, auction_values=auction_values,
+        alpha_beta=alpha_beta, gen_cluster=gen_cluster, gen_pods=gen_pods,
+    )
+
+    # ---- 1. device -------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(f"device: {kind} (count {count}); torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)  # name, power limit
+    dev = torch.device("cuda", 0)
+
+    # ---- 2. build --------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path, log = _build.build()
+    _build.load_library()
+    print(f"build: {lib_path.name} in {time.perf_counter() - t0:.3f} s", flush=True)
+    for ln in log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            print(f"  {ln.strip()}", flush=True)
+
+    # ---- 3. kernels against their plain versions ------------------------
+    snap, pods = gen_config("gpu-10kx10k", seed=0, device=dev)
+    window = type(pods)(*[f[:WINDOW] for f in pods])
+    sel_snap = gen_cluster(10_000, seed=0, constraints=True, device=dev)
+    sel_pods = gen_pods(WINDOW, seed=1, constraints=True, device=dev)
+    results = check_kernels(torch, port, snap, window, sel_snap, sel_pods)
+
+    # ---- 4. the slice through TorchEngine --------------------------------
+    launches = run_slice(torch, port, snap, pods, window)
+
+    # ---- 5. the kernels line and the result -----------------------------
+    kernels = []
+    for name, lines in results.items():
+        main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kubernetes_scheduler_tpu_torch/csrc/fused.cu",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in lines),
+            "ms": main_line["kernel_ms"], "plain_ms": main_line["plain_ms"],
+            "bound_ms": main_line["bound_us"] / 1e3,
+            "bound_by": main_line["bound_by"], "library_ms": None,
+            "parity": "bitwise", "case": MAIN_CASE[name],
+        })
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,661 @@
+"""The batch scheduling engine on PyTorch (counterpart of
+kubernetes_scheduler_tpu/engine.py, the fused auction path).
+
+For a window of pending pods and a cluster snapshot, one cycle computes
+
+    utilization stats -> fused masked score (K2 bounds, K1 score and
+    feasibility) -> auction assignment (K3 bid head per round) -> gangs
+
+and returns pod -> node bindings; `schedule_windows` carries node
+capacity and domain counts across a backlog of windows. The types mirror
+the reference's NamedTuples field for field, with torch tensors as
+leaves on one explicit device.
+
+Ported: fused=True with policy balanced_cpu_diskio, normalizer "none" or
+"min_max", assigner "auction" and affinity_aware=False, on selector axes
+up to MAX_FUSED_SELECTORS. Every other option raises NotImplementedError
+naming the ROADMAP item that adds it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from kubernetes_scheduler_tpu_torch.device import resolve_device
+from kubernetes_scheduler_tpu_torch.ops.assign import (
+    NEG,
+    auction_assign,
+    pod_has_anti_onehot,
+)
+from kubernetes_scheduler_tpu_torch.ops.constraints import (
+    node_affinity_fit,
+    taint_toleration_fit,
+)
+from kubernetes_scheduler_tpu_torch.ops.feasibility import card_fit
+from kubernetes_scheduler_tpu_torch.ops.fused import (
+    MAX_FUSED_SELECTORS,
+    fused_masked_score,
+)
+from kubernetes_scheduler_tpu_torch.ops.gang import gang_mask_assign
+from kubernetes_scheduler_tpu_torch.ops.normalize import F32_MAX
+from kubernetes_scheduler_tpu_torch.ops.stats import utilization_stats
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+
+class SnapshotArrays(NamedTuple):
+    """Dense node-side cluster state (reference: engine.SnapshotArrays)."""
+
+    allocatable: torch.Tensor      # [n, r] float32
+    requested: torch.Tensor        # [n, r] float32 (non-zero defaults applied)
+    disk_io: torch.Tensor          # [n] float32 MB/s
+    cpu_pct: torch.Tensor          # [n] float32 %
+    mem_pct: torch.Tensor          # [n] float32 %
+    net_up: torch.Tensor           # [n] float32 MB/s
+    net_down: torch.Tensor         # [n] float32 MB/s
+    node_mask: torch.Tensor        # [n] bool
+    cards: torch.Tensor            # [n, c, 6] float32
+    card_mask: torch.Tensor        # [n, c] bool
+    card_healthy: torch.Tensor     # [n, c] bool
+    taints: torch.Tensor           # [n, T, 3] int32 (key, value, effect)
+    taint_mask: torch.Tensor       # [n, T] bool
+    node_labels: torch.Tensor      # [n, Ln, 2] int32 (key, value)
+    node_label_mask: torch.Tensor  # [n, Ln] bool
+    domain_counts: torch.Tensor    # [n, S] float32 selector match counts
+    domain_id: torch.Tensor        # [n, S] int32 topology-domain id
+    avoid_counts: torch.Tensor     # [n, S] float32 running avoiders
+    pref_attract: torch.Tensor     # [n, S] float32
+    pref_avoid: torch.Tensor       # [n, S] float32
+    image_scaled: torch.Tensor     # [n, V] float32
+
+
+class PodBatch(NamedTuple):
+    """Dense pending-pod window (reference: engine.PodBatch); a windows
+    batch carries a leading [w] axis on every leaf."""
+
+    request: torch.Tensor             # [p, r] float32
+    r_io: torch.Tensor                # [p] float32 diskIO MB/s
+    priority: torch.Tensor            # [p] int32
+    pod_mask: torch.Tensor            # [p] bool
+    want_number: torch.Tensor         # [p] int32 (0 = no GPU demand)
+    want_memory: torch.Tensor         # [p] float32 (-1 = absent)
+    want_clock: torch.Tensor          # [p] float32 (-1 = absent)
+    tolerations: torch.Tensor         # [p, L, 4] int32
+    tol_mask: torch.Tensor            # [p, L] bool
+    na_key: torch.Tensor              # [p, E] int32
+    na_op: torch.Tensor               # [p, E] int32
+    na_vals: torch.Tensor             # [p, E, V] int32
+    na_val_mask: torch.Tensor         # [p, E, V] bool
+    na_mask: torch.Tensor             # [p, E] bool
+    na_term: torch.Tensor             # [p, E] int32 OR-group ids
+    affinity_sel: torch.Tensor        # [p, K] int32, -1 pad
+    anti_affinity_sel: torch.Tensor   # [p, K] int32, -1 pad
+    pod_matches: torch.Tensor         # [p, S] bool
+    pna_key: torch.Tensor             # [p, Ep] int32
+    pna_op: torch.Tensor              # [p, Ep] int32
+    pna_vals: torch.Tensor            # [p, Ep, V] int32
+    pna_val_mask: torch.Tensor        # [p, Ep, V] bool
+    pna_mask: torch.Tensor            # [p, Ep] bool
+    pna_weight: torch.Tensor          # [p, Ep] float32
+    pna_term: torch.Tensor            # [p, Ep] int32
+    pref_affinity_sel: torch.Tensor   # [p, K] int32
+    pref_affinity_weight: torch.Tensor  # [p, K] float32
+    pref_anti_sel: torch.Tensor       # [p, K] int32
+    pref_anti_weight: torch.Tensor    # [p, K] float32
+    target_node: torch.Tensor         # [p] int32, -1 unpinned
+    spread_sel: torch.Tensor          # [p, Ks] int32
+    spread_max: torch.Tensor          # [p, Ks] int32
+    soft_spread_sel: torch.Tensor     # [p, Kss] int32
+    image_ids: torch.Tensor           # [p, Ki] int32
+    n_containers: torch.Tensor        # [p] int32
+    gang_id: torch.Tensor             # [p] int32, -1 = no gang
+    gang_size: torch.Tensor           # [p] int32
+
+
+# leaf dtypes as make_snapshot / make_pod_batch fix them
+SNAPSHOT_DTYPES = {
+    "node_mask": _BOOL, "card_mask": _BOOL, "card_healthy": _BOOL,
+    "taints": _I32, "taint_mask": _BOOL, "node_labels": _I32,
+    "node_label_mask": _BOOL, "domain_id": _I32,
+}
+SNAPSHOT_DTYPES = {f: SNAPSHOT_DTYPES.get(f, _F32) for f in SnapshotArrays._fields}
+POD_DTYPES = {
+    "request": _F32, "r_io": _F32, "want_memory": _F32, "want_clock": _F32,
+    "pna_weight": _F32, "pref_affinity_weight": _F32, "pref_anti_weight": _F32,
+    "pod_mask": _BOOL, "tol_mask": _BOOL, "na_val_mask": _BOOL, "na_mask": _BOOL,
+    "pod_matches": _BOOL, "pna_val_mask": _BOOL, "pna_mask": _BOOL,
+}
+POD_DTYPES = {f: POD_DTYPES.get(f, _I32) for f in PodBatch._fields}
+
+_NP_DTYPES = {_F32: np.float32, _I32: np.int32, _BOOL: np.bool_}
+
+
+def as_leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """One array-like leaf (numpy, list, scalar or tensor) as a tensor of
+    `dtype` on `device`; other inputs convert (and copy) on the host first."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.array(x, dtype=_NP_DTYPES[dtype])).to(device)
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def make_snapshot(
+    allocatable, requested, disk_io, cpu_pct, mem_pct, *,
+    net_up=None, net_down=None, node_mask=None, cards=None, card_mask=None,
+    card_healthy=None, taints=None, taint_mask=None, node_labels=None,
+    node_label_mask=None, domain_counts=None, domain_id=None,
+    avoid_counts=None, pref_attract=None, pref_avoid=None,
+    image_scaled=None, device=None,
+) -> SnapshotArrays:
+    """SnapshotArrays with the reference's no-op defaults for everything
+    optional (no cards, no taints, no labels, one selector column, every
+    node its own domain), on `device` (default cuda)."""
+    dev = resolve_device(device)
+    n = _shape(allocatable)[0]
+    s = 1 if domain_counts is None else _shape(domain_counts)[1]
+    z = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+    leaves = dict(
+        allocatable=allocatable, requested=requested, disk_io=disk_io,
+        cpu_pct=cpu_pct, mem_pct=mem_pct,
+        net_up=z(n) if net_up is None else net_up,
+        net_down=z(n) if net_down is None else net_down,
+        node_mask=np.ones(n, bool) if node_mask is None else node_mask,
+        cards=z(n, 1, 6) if cards is None else cards,
+        # a provided payload with an omitted mask defaults to all-valid
+        card_mask=(
+            (z(n, 1) if cards is None else np.ones(_shape(cards)[:2]))
+            if card_mask is None else card_mask
+        ),
+        card_healthy=(
+            (z(n, 1) if cards is None else np.ones(_shape(cards)[:2]))
+            if card_healthy is None else card_healthy
+        ),
+        taints=z(n, 1, 3) if taints is None else taints,
+        taint_mask=(
+            (z(n, 1) if taints is None else np.ones(_shape(taints)[:2]))
+            if taint_mask is None else taint_mask
+        ),
+        node_labels=z(n, 1, 2) if node_labels is None else node_labels,
+        node_label_mask=(
+            (z(n, 1) if node_labels is None else np.ones(_shape(node_labels)[:2]))
+            if node_label_mask is None else node_label_mask
+        ),
+        domain_counts=z(n, 1) if domain_counts is None else domain_counts,
+        domain_id=(
+            np.repeat(np.arange(n)[:, None], s, axis=1)
+            if domain_id is None else domain_id
+        ),
+        avoid_counts=z(n, s) if avoid_counts is None else avoid_counts,
+        pref_attract=z(n, s) if pref_attract is None else pref_attract,
+        pref_avoid=z(n, s) if pref_avoid is None else pref_avoid,
+        image_scaled=z(n, 1) if image_scaled is None else image_scaled,
+    )
+    return SnapshotArrays(
+        **{k: as_leaf(v, SNAPSHOT_DTYPES[k], dev) for k, v in leaves.items()}
+    )
+
+
+def make_pod_batch(
+    request, *,
+    r_io=None, priority=None, pod_mask=None, want_number=None,
+    want_memory=None, want_clock=None, tolerations=None, tol_mask=None,
+    na_key=None, na_op=None, na_vals=None, na_val_mask=None, na_mask=None,
+    na_term=None, affinity_sel=None, anti_affinity_sel=None,
+    pod_matches=None, pna_key=None, pna_op=None, pna_vals=None,
+    pna_val_mask=None, pna_mask=None, pna_weight=None, pna_term=None,
+    pref_affinity_sel=None, pref_affinity_weight=None, pref_anti_sel=None,
+    pref_anti_weight=None, target_node=None, spread_sel=None,
+    spread_max=None, soft_spread_sel=None, image_ids=None,
+    n_containers=None, gang_id=None, gang_size=None, device=None,
+) -> PodBatch:
+    """PodBatch with the reference's no-op defaults (no GPU demand, no
+    tolerations, no affinity, no preferences, no gang), on `device`
+    (default cuda)."""
+    dev = resolve_device(device)
+    p = _shape(request)[0]
+    z = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+    neg = lambda *shape: np.full(shape, -1, np.int32)  # noqa: E731
+    ones = lambda x: np.ones(_shape(x))  # noqa: E731
+    e_p = 1 if pna_key is None else _shape(pna_key)[1]
+    leaves = dict(
+        request=request,
+        r_io=z(p) if r_io is None else r_io,
+        priority=z(p) if priority is None else priority,
+        pod_mask=np.ones(p, bool) if pod_mask is None else pod_mask,
+        want_number=z(p) if want_number is None else want_number,
+        want_memory=np.full(p, -1.0) if want_memory is None else want_memory,
+        want_clock=np.full(p, -1.0) if want_clock is None else want_clock,
+        tolerations=z(p, 1, 4) if tolerations is None else tolerations,
+        tol_mask=(
+            (z(p, 1) if tolerations is None else np.ones(_shape(tolerations)[:2]))
+            if tol_mask is None else tol_mask
+        ),
+        na_key=z(p, 1) if na_key is None else na_key,
+        na_op=z(p, 1) if na_op is None else na_op,
+        na_vals=z(p, 1, 1) if na_vals is None else na_vals,
+        na_val_mask=(
+            (z(p, 1, 1) if na_vals is None else ones(na_vals))
+            if na_val_mask is None else na_val_mask
+        ),
+        na_mask=(
+            (z(p, 1) if na_key is None else ones(na_key))
+            if na_mask is None else na_mask
+        ),
+        na_term=(
+            (z(p, 1) if na_key is None else z(*_shape(na_key)))
+            if na_term is None else na_term
+        ),
+        affinity_sel=neg(p, 1) if affinity_sel is None else affinity_sel,
+        anti_affinity_sel=(
+            neg(p, 1) if anti_affinity_sel is None else anti_affinity_sel
+        ),
+        pod_matches=z(p, 1) if pod_matches is None else pod_matches,
+        pna_key=z(p, 1) if pna_key is None else pna_key,
+        pna_op=z(p, 1) if pna_op is None else pna_op,
+        pna_vals=z(p, 1, 1) if pna_vals is None else pna_vals,
+        pna_val_mask=(
+            (z(p, 1, 1) if pna_vals is None else ones(pna_vals))
+            if pna_val_mask is None else pna_val_mask
+        ),
+        pna_mask=(
+            (z(p, 1) if pna_key is None else ones(pna_key))
+            if pna_mask is None else pna_mask
+        ),
+        pna_weight=(
+            (z(p, 1) if pna_key is None else ones(pna_key))
+            if pna_weight is None else pna_weight
+        ),
+        # default: each expression its own preferred term
+        pna_term=(
+            np.repeat(np.arange(e_p)[None, :], p, axis=0)
+            if pna_term is None else pna_term
+        ),
+        pref_affinity_sel=(
+            neg(p, 1) if pref_affinity_sel is None else pref_affinity_sel
+        ),
+        pref_affinity_weight=(
+            (z(p, 1) if pref_affinity_sel is None else ones(pref_affinity_sel))
+            if pref_affinity_weight is None else pref_affinity_weight
+        ),
+        pref_anti_sel=neg(p, 1) if pref_anti_sel is None else pref_anti_sel,
+        pref_anti_weight=(
+            (z(p, 1) if pref_anti_sel is None else ones(pref_anti_sel))
+            if pref_anti_weight is None else pref_anti_weight
+        ),
+        target_node=neg(p) if target_node is None else target_node,
+        spread_sel=neg(p, 1) if spread_sel is None else spread_sel,
+        spread_max=(
+            (np.ones((p, 1)) if spread_sel is None else ones(spread_sel))
+            if spread_max is None else spread_max
+        ),
+        soft_spread_sel=neg(p, 1) if soft_spread_sel is None else soft_spread_sel,
+        image_ids=neg(p, 1) if image_ids is None else image_ids,
+        n_containers=np.ones(p) if n_containers is None else n_containers,
+        gang_id=neg(p) if gang_id is None else gang_id,
+        gang_size=z(p) if gang_size is None else gang_size,
+    )
+    return PodBatch(**{k: as_leaf(v, POD_DTYPES[k], dev) for k, v in leaves.items()})
+
+
+class ScheduleResult(NamedTuple):
+    node_idx: torch.Tensor     # [p] int32 assigned node, -1 = unschedulable
+    scores: torch.Tensor       # [p, n] (fused: the masked matrix)
+    raw_scores: torch.Tensor   # [p, n]
+    feasible: torch.Tensor     # [p, n] bool
+    free_after: torch.Tensor   # [n, r]
+    n_assigned: torch.Tensor   # [] int32
+
+
+class WindowsResult(NamedTuple):
+    node_idx: torch.Tensor    # [w, p] int32 per-window assignments
+    free_after: torch.Tensor  # [n, r] free capacity after the last window
+    n_assigned: torch.Tensor  # [] int32 total across windows
+
+
+# ---- the cycle ----------------------------------------------------------
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch engine yet: ROADMAP queue A, {item}"
+    )
+
+
+def check_fused_contract(policy: str, normalizer: str) -> None:
+    """The fused path's (policy, normalizer) domain on the dense surface
+    (reference: engine.check_fused_contract with min_max_ok=True)."""
+    if policy != "balanced_cpu_diskio":
+        raise ValueError(
+            f"fused kernel only implements balanced_cpu_diskio, not {policy!r}"
+        )
+    allowed = ("none", "min_max")
+    if normalizer not in allowed:
+        raise ValueError(
+            f"fused=True requires normalizer in {allowed}, not {normalizer!r}"
+        )
+
+
+def compute_free_capacity(snapshot: SnapshotArrays) -> torch.Tensor:
+    """[n, r] free capacity for assignment; padded nodes get 0."""
+    return torch.where(
+        snapshot.node_mask[:, None],
+        snapshot.allocatable - snapshot.requested,
+        0.0,
+    )
+
+
+def match_matrix(pods: PodBatch, s: int) -> torch.Tensor:
+    """pods.pod_matches aligned to the snapshot's selector dimension `s`."""
+    m = pods.pod_matches
+    if m.shape[1] < s:
+        return torch.nn.functional.pad(m, (0, s - m.shape[1]))
+    return m[:, :s]
+
+
+def local_spread_dmin(snapshot: SnapshotArrays) -> torch.Tensor:
+    """[S] per-selector minimum domain count over schedulable nodes, the
+    spread families' reference point."""
+    return torch.where(
+        snapshot.node_mask[:, None], snapshot.domain_counts, F32_MAX
+    ).amin(dim=0)
+
+
+def _fused_affinity_operands(
+    snapshot: SnapshotArrays, pods: PodBatch
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(aff_pod [4S, p], aff_node [3S, n], valid [p]): the count-based
+    families (pod affinity, anti-affinity, reverse avoiders, topology
+    spread) as per-selector rows K1 folds; a stale selector id >= S makes
+    the pod infeasible everywhere through `valid`."""
+    s = snapshot.domain_counts.shape[1]
+    p = pods.request.shape[0]
+    dev = pods.request.device
+    a_hot = pod_has_anti_onehot(pods.affinity_sel, s).to(_F32)
+    t_hot = pod_has_anti_onehot(pods.anti_affinity_sel, s).to(_F32)
+    matches = match_matrix(pods, s).to(_F32)
+    # per-(pod, selector) spread threshold: the tightest maxSkew of the
+    # pod's constraints on that selector (+F32_MAX when unconstrained)
+    sel = torch.clamp(pods.spread_sel, 0, max(s - 1, 0)).long()
+    thresh = torch.full((p, s), F32_MAX, dtype=_F32, device=dev).scatter_reduce(
+        1, sel,
+        torch.where(pods.spread_sel >= 0, pods.spread_max.to(_F32), F32_MAX),
+        "amin",
+    )
+    aff_pod = torch.cat([a_hot.T, t_hot.T, matches.T, thresh.T], dim=0)
+    present = (snapshot.domain_counts > 0).to(_F32).T
+    avoid_present = (snapshot.avoid_counts > 0).to(_F32).T
+    dmin = local_spread_dmin(snapshot)
+    cnt_plus = (snapshot.domain_counts + 1.0 - dmin[None, :]).T
+    aff_node = torch.cat([present, avoid_present, cnt_plus], dim=0)
+    valid = ~(
+        (pods.affinity_sel >= s).any(-1)
+        | (pods.anti_affinity_sel >= s).any(-1)
+        | (pods.spread_sel >= s).any(-1)
+    )
+    return aff_pod.contiguous(), aff_node.contiguous(), valid
+
+
+def fused_score_operands(snapshot: SnapshotArrays, pods: PodBatch) -> dict:
+    """Keyword arguments of ops.fused.fused_masked_score for one window
+    without in-window affinity (the selector families are evaluated
+    against pre-window counts): the utilization vectors, resources, pod
+    mask (with selector validity), nodeName pins, the count-based selector
+    rows K1 folds, and the `other` mask (cards & taints & node affinity,
+    plain PyTorch, as in the reference)."""
+    stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+    s = snapshot.domain_counts.shape[1]
+    if s > MAX_FUSED_SELECTORS:
+        raise _not_ported(
+            f"a selector axis of {s} > {MAX_FUSED_SELECTORS} (the unfused "
+            "fallback for the count-based families)",
+            "'the wide-selector fallback'",
+        )
+    aff_pod, aff_node, valid = _fused_affinity_operands(snapshot, pods)
+    gpu_fits, _ = card_fit(
+        snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
+        pods.want_number, pods.want_memory, pods.want_clock,
+    )
+    other = gpu_fits & taint_toleration_fit(
+        snapshot.taints, snapshot.taint_mask, pods.tolerations, pods.tol_mask
+    ) & node_affinity_fit(
+        snapshot.node_labels, snapshot.node_label_mask,
+        pods.na_key, pods.na_op, pods.na_vals, pods.na_val_mask, pods.na_mask,
+        pods.na_term,
+    )
+    return dict(
+        u=stats.u, v=stats.v, node_mask=snapshot.node_mask,
+        alloc=snapshot.allocatable, reqd=snapshot.requested,
+        r_cpu=pods.request[:, 0], r_io=pods.r_io, pod_request=pods.request,
+        pod_mask=pods.pod_mask & valid, target_node=pods.target_node,
+        other=other.to(_F32),
+        aff_pod=aff_pod, aff_node=aff_node,
+    )
+
+
+def _fused_masked_scores(
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    *,
+    normalizer: str = "none",
+    _plain: bool = False,
+) -> torch.Tensor:
+    """[p, n] score where feasible, NEG elsewhere, through K2 and K1 (the
+    score, resource fit, nodeName pin, selector families and `other` mask
+    in one kernel pass)."""
+    return fused_masked_score(
+        **fused_score_operands(snapshot, pods), normalizer=normalizer, _plain=_plain
+    )
+
+
+def finish_cycle(
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    raw: torch.Tensor,
+    norm: torch.Tensor,
+    feasible: torch.Tensor,
+    *,
+    auction_rounds: int = 1024,
+    auction_price_frac: float = 1.0,
+    _plain: bool = False,
+) -> ScheduleResult:
+    """Cycle tail: auction assignment (without affinity), then the
+    all-or-nothing gang pass."""
+    res = auction_assign(
+        norm, feasible, pods.request, compute_free_capacity(snapshot),
+        pods.priority, pods.pod_mask,
+        rounds=auction_rounds, price_frac=auction_price_frac, _plain=_plain,
+    )
+    node_idx, free_after, n_assigned = gang_mask_assign(
+        pods.gang_id, pods.gang_size, pods.pod_mask,
+        res.node_idx, pods.request, res.free_after, res.n_assigned,
+    )
+    return ScheduleResult(
+        node_idx=node_idx,
+        scores=norm,
+        raw_scores=raw,
+        feasible=feasible,
+        free_after=free_after,
+        n_assigned=n_assigned,
+    )
+
+
+def schedule_batch(
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    *,
+    policy: str = "balanced_cpu_diskio",
+    assigner: str = "greedy",
+    normalizer: str = "min_max",
+    fused: bool = False,
+    affinity_aware: bool = True,
+    soft: bool = False,
+    auction_rounds: int = 1024,
+    auction_price_frac: float = 1.0,
+    score_plugins: tuple | None = None,
+    layout=None,
+    _plain: bool = False,
+) -> ScheduleResult:
+    """One scheduling cycle for the whole pending window, on the device
+    the tensors live on (reference: engine.schedule_batch; the defaults
+    are the reference's). The ported path is fused=True,
+    assigner="auction", affinity_aware=False: K2 and K1 build the masked
+    score matrix, the auction's rounds run K3. As in the reference's fused
+    replies, `scores` and `raw_scores` are the masked matrix.
+
+    `_plain=True` runs every kernel's plain PyTorch version instead, on
+    any device, to hold the kernel path against it."""
+    if score_plugins:
+        raise _not_ported("score_plugins", "'score_plugins'")
+    if layout is not None:
+        raise _not_ported(
+            "a resident FusedLayout", "'resident state and layouts'"
+        )
+    if not fused:
+        raise _not_ported(
+            "fused=False (the unfused composition)",
+            "'the unfused path and other policies'",
+        )
+    check_fused_contract(policy, normalizer)
+    if soft:
+        raise _not_ported("soft=True", "'soft scores'")
+    if assigner != "auction":
+        raise _not_ported(f"assigner={assigner!r}", "'greedy with K4'")
+    if affinity_aware:
+        raise _not_ported(
+            "affinity_aware=True", "'the affinity-aware auction and greedy'"
+        )
+    raw = _fused_masked_scores(snapshot, pods, normalizer=normalizer, _plain=_plain)
+    feasible = raw > NEG * 0.5
+    return finish_cycle(
+        snapshot, pods, raw, raw, feasible,
+        auction_rounds=auction_rounds, auction_price_frac=auction_price_frac,
+        _plain=_plain,
+    )
+
+
+def stack_windows(pods: PodBatch, window: int) -> PodBatch:
+    """Reshape a [P, ...] PodBatch into [P // window, window, ...] for
+    schedule_windows; P must be a multiple of `window` (pad first with
+    utils.padding.pad_pod_batch). numpy leaves stay numpy."""
+    p = pods.request.shape[0]
+    if p % window:
+        raise ValueError(f"pod count {p} not a multiple of window {window}")
+    return PodBatch(
+        *[f.reshape((p // window, window) + tuple(f.shape[1:])) for f in pods]
+    )
+
+
+def fold_window_counts(snapshot, pods, node_idx, domain_counts, avoid_counts):
+    """Fold one window's placements into the per-node replicated domain
+    match and avoider counts, so the next window's selector families see
+    them: increments scatter onto each domain's representative row
+    (domain_id) and gather back to every member node."""
+    found = node_idx >= 0
+    s = domain_counts.shape[1]
+    n = snapshot.domain_id.shape[0]
+    cols = torch.arange(s, device=node_idx.device)[None, :]
+    dom = snapshot.domain_id[torch.clamp(node_idx, 0, n - 1).long()].long()  # [p, S]
+    dom_all = snapshot.domain_id.long()
+
+    def fold(counts, per_pod):
+        inc = torch.where(found[:, None], per_pod.to(counts.dtype), 0.0)
+        added = torch.zeros_like(counts).index_put_(
+            (dom, cols.expand_as(dom)), inc, accumulate=True
+        )
+        return counts + added[dom_all, cols]
+
+    return (
+        fold(domain_counts, match_matrix(pods, s)),
+        fold(avoid_counts, pod_has_anti_onehot(pods.anti_affinity_sel, s)),
+    )
+
+
+def run_windows_scan(snapshot, pods_windows, cycle_fn) -> WindowsResult:
+    """The capacity- and domain-count-carrying loop over stacked windows
+    (reference: engine.run_windows_scan's lax.scan): each window is
+    scheduled against the requested capacity and counts the previous
+    windows left behind."""
+    requested = snapshot.requested
+    domain_counts, avoid_counts = snapshot.domain_counts, snapshot.avoid_counts
+    node_idx, counts = [], []
+    for w in range(pods_windows.request.shape[0]):
+        window = PodBatch(*[f[w] for f in pods_windows])
+        snap = snapshot._replace(
+            requested=requested, domain_counts=domain_counts,
+            avoid_counts=avoid_counts,
+        )
+        res = cycle_fn(snap, window)
+        domain_counts, avoid_counts = fold_window_counts(
+            snapshot, window, res.node_idx, domain_counts, avoid_counts
+        )
+        requested = snapshot.allocatable - res.free_after
+        node_idx.append(res.node_idx)
+        counts.append(res.n_assigned)
+    return WindowsResult(
+        node_idx=torch.stack(node_idx),
+        free_after=snapshot.allocatable - requested,
+        n_assigned=torch.stack(counts).sum().to(_I32),
+    )
+
+
+def schedule_windows(
+    snapshot: SnapshotArrays,
+    pods_windows: PodBatch,
+    *,
+    policy: str = "balanced_cpu_diskio",
+    assigner: str = "auction",
+    normalizer: str = "none",
+    fused: bool = False,
+    affinity_aware: bool = True,
+    soft: bool = False,
+    auction_rounds: int = 1024,
+    auction_price_frac: float = 1.0,
+    score_plugins: tuple | None = None,
+    layout=None,
+    _plain: bool = False,
+) -> WindowsResult:
+    """Schedule a backlog of windows in one call (reference:
+    engine.schedule_windows): a loop over the leading window axis of
+    `pods_windows` (see stack_windows), carrying node capacity and
+    domain counts between windows. Options are schedule_batch's."""
+
+    def cycle(snap, window):
+        return schedule_batch(
+            snap, window, policy=policy, assigner=assigner,
+            normalizer=normalizer, fused=fused, affinity_aware=affinity_aware,
+            soft=soft, auction_rounds=auction_rounds,
+            auction_price_frac=auction_price_frac,
+            score_plugins=score_plugins, layout=layout, _plain=_plain,
+        )
+
+    return run_windows_scan(snapshot, pods_windows, cycle)
+
+
+class TorchEngine:
+    """In-process engine with LocalEngine's call surface
+    (`schedule_batch(snapshot, pods, **kw)`,
+    `schedule_windows(snapshot, pods_windows, **kw)`), on one device
+    (default cuda; raises without CUDA unless device="cpu" is passed).
+    Each call moves numpy or tensor leaves to the device once, in the
+    dtypes make_snapshot / make_pod_batch fix."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+
+    def _put(self, snapshot, pods):
+        return (
+            make_snapshot(**snapshot._asdict(), device=self.device),
+            make_pod_batch(**pods._asdict(), device=self.device),
+        )
+
+    def schedule_batch(self, snapshot, pods, **kw) -> ScheduleResult:
+        return schedule_batch(*self._put(snapshot, pods), **kw)
+
+    def schedule_windows(self, snapshot, pods_windows, **kw) -> WindowsResult:
+        return schedule_windows(*self._put(snapshot, pods_windows), **kw)
