@@ -7,16 +7,30 @@ Phases; the first failure exits non-zero and no result line is printed:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile csrc/fused.cu with nvcc (first use) and load it;
 3. kernels: each hand-written kernel (K1 masked_score, K2 row_stats,
-   K3 auction_bid) against its plain PyTorch version on the card, at the
-   main path's shapes (1,024 pods x 10,000 nodes x 3 resources of the
-   gpu-10kx10k config), bitwise; CUDA-event times, median of 25 launches;
-4. the slice through TorchEngine(): schedule_batch on one 1,024-pod
-   window and schedule_windows on the 8 x 1,024-pod backlog (the main
-   path; the launch counts are read from this run), each equal to the
-   same call on the plain versions; one cycle and one backlog under
-   torch.profiler; a small cluster scheduled on the card must equal the
-   port's CPU path, which the tests hold against the JAX reference;
-5. the kernels line, then the result line.
+   K3 auction_bid, K4 greedy_scan) against its plain PyTorch version on
+   the card, at the main path's shapes (1,024 pods x 10,000 nodes x 3
+   resources of the gpu-10kx10k config), bitwise; K4 also on contended
+   capacity, planted ties, all-NEG rows with zero requests on
+   oversubscribed resources, and r = 7; CUDA-event times, median of 25
+   launches;
+4. the auction slice through TorchEngine(): schedule_batch on one
+   1,024-pod window and schedule_windows on the 8 x 1,024-pod backlog
+   (the first main path; K1-K3's launch counts are read from this run),
+   each equal to the same call on the plain versions; one cycle and one
+   backlog under torch.profiler;
+5. the greedy backlog (8 x 1,024 pods, affinity_aware=False: the second
+   main path, K4's launch count is read from it) equal to its plain run,
+   with K4 launched once per window, and under torch.profiler;
+6. the affinity paths on constraints-5kx5k (5,000 pods padded to
+   5 x 1,024, 8 selectors, affinity_aware=True) for greedy and for the
+   auction, each equal to its plain run and breaking no hard affinity,
+   anti-affinity or reverse-avoider constraint in its final placements;
+   then both greedy scans on one window under torch's sync debug mode,
+   which must see no host read;
+7. small clusters scheduled on the card must equal the port's CPU path
+   (which the tests hold against the JAX reference), for the auction,
+   greedy, and both assigners with affinity;
+8. the kernels line, then the result line.
 
 Needs torch with CUDA, and nothing of JAX.
 """
@@ -38,16 +52,29 @@ TIMED_LAUNCHES = 25
 SLICE_KW = dict(
     assigner="auction", normalizer="min_max", fused=True, affinity_aware=False
 )
+GREEDY_KW = dict(SLICE_KW, assigner="greedy")
+AFFINITY_KW = {
+    "greedy": dict(SLICE_KW, assigner="greedy", affinity_aware=True),
+    "auction": dict(SLICE_KW, affinity_aware=True),
+}
+AFFINITY_WINDOWS = 5   # constraints-5kx5k: 5,000 pods padded to 5 x 1,024
 REPLACES = {
     "masked_score": "kubernetes_scheduler_tpu/ops/pallas_fused.py:252",
     "row_stats": "kubernetes_scheduler_tpu/ops/pallas_fused.py:385",
     "auction_bid": "kubernetes_scheduler_tpu/ops/pallas_fused.py:581",
+    "greedy_scan": "kubernetes_scheduler_tpu/ops/pallas_fused.py:476",
 }
 # each kernel's case on the main path, reported in the kernels line
 MAIN_CASE = {
     "masked_score": "S=1 minmax=True",
     "row_stats": "gpu-10kx10k window",
     "auction_bid": "first round",
+    "greedy_scan": "(a) main path",
+}
+# the backlog whose run each kernel's launch count is read from
+MAIN_PATH = {
+    "masked_score": "auction", "row_stats": "auction", "auction_bid": "auction",
+    "greedy_scan": "greedy",
 }
 
 
@@ -253,22 +280,90 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
             "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
             "bidders": int(got_h.sum()),
         }, ok)
+
+    # K4 on the greedy cycle's operands in scan order, then on contended
+    # capacity, planted ties, and NEG rows with zero requests at r = 7
+    _, sj, req, free = port["greedy_scan_operands"](
+        raw, raw > NEG * 0.5, window.request, free, window.priority, window.pod_mask)
+    p, n = sj.shape
+    r = req.shape[1]
+    cpu_gen = torch.Generator().manual_seed(0)
+    cases = {"(a) main path": (sj, req, free)}
+    # every pod ranks the nodes alike and a node holds one or two pods, so
+    # the decrement decides where later pods go
+    rank = torch.randperm(n, generator=cpu_gen).to(dev, torch.float32)
+    cases["(b) contended capacity"] = (
+        torch.where(sj > NEG * 0.5, rank[None, :], NEG).contiguous(), req,
+        (req.amax(0) * 1.5).clamp(min=2.0).expand(n, r).contiguous(),
+    )
+    # exact ties in neighbouring threads, warps, and one thread's strides
+    tie_sj = sj.clone()
+    tie_rows = torch.arange(0, p, 3, device=dev)
+    first = (tie_rows * 37) % (n // 10)
+    for off in (0, 1, 32, 1024, 1025, n // 2):
+        tie_sj[tie_rows, first + off] = 1000.0
+    cases["(c) planted ties"] = (tie_sj, req, torch.full_like(free, 3.0e38))
+    # all-NEG rows; four more resources, zero for most pods, oversubscribed
+    # (negative) on half the nodes; n * r * 4 B = 280 KB > 227 KB of smem
+    neg_sj = sj.clone()
+    neg_sj[torch.arange(p, device=dev) % 7 == 1] = NEG
+    extra = torch.randint(1, 3, (p, 4), generator=cpu_gen).float()
+    extra *= torch.rand(p, 4, generator=cpu_gen) < 0.3
+    over = torch.where(torch.rand(n, 4, generator=cpu_gen) < 0.5, -1.0, 4.0)
+    cases["(d) NEG rows, zero requests, r=7"] = (
+        neg_sj, torch.cat([req, extra.to(dev)], 1).contiguous(),
+        torch.cat([free, over.to(dev)], 1).contiguous(),
+    )
+    for tag, k4 in cases.items():
+        got_p, got_f = fused.greedy_scan(*k4)
+        want_p, want_f = fused.greedy_scan_plain(*k4)
+        torch.cuda.synchronize()
+        ok = same(torch, got_p, want_p) and same(torch, got_f, want_f)
+        if tag == "(c) planted ties":
+            ok = ok and bool((got_p[tie_rows] == first.int()).all())
+        if tag.startswith("(d)"):
+            ok = ok and bool((got_p[torch.arange(p, device=dev) % 7 == 1] == -1).all())
+        rk = k4[1].shape[1]
+        b_ms, b_by = bound(nbytes(*k4, got_p, got_f), p * n * (2 + 3 * rk))
+        record({
+            "kernel": "greedy_scan", "case": tag, "p": p, "n": n, "r": rk,
+            "bitwise": ok,
+            "max_abs_err": max(max_abs_err(got_p, want_p), max_abs_err(got_f, want_f)),
+            "kernel_ms": cuda_ms(torch, lambda: fused.greedy_scan(*k4)),
+            "plain_ms": cuda_ms(torch, lambda: fused.greedy_scan_plain(*k4)),
+            "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
+            "placed": int((got_p >= 0).sum()),
+        }, ok)
     return results
 
 
+def check_equal(torch, what, got, want) -> None:
+    for field in ("node_idx", "free_after", "n_assigned"):
+        if not same(torch, getattr(got, field), getattr(want, field)):
+            fail(f"{what} {field} differs")
+
+
+def check_backlog(torch, what, out, n_windows, n_nodes, min_share) -> int:
+    """Shape, range, capacity and placement-count checks of one backlog;
+    returns n_assigned."""
+    assigned = int(out.n_assigned)
+    if tuple(out.node_idx.shape) != (n_windows, WINDOW) or bool((out.node_idx >= n_nodes).any()):
+        fail(f"{what} node_idx has the wrong shape or range")
+    if not bool(torch.isfinite(out.free_after).all()) or bool((out.free_after < 0).any()):
+        fail(f"{what} free_after is not finite and non-negative")
+    if assigned < min_share * n_windows * WINDOW:
+        fail(f"{what} assigned only {assigned}/{n_windows * WINDOW} pods")
+    return assigned
+
+
 def run_slice(torch, port, snap, pods, window) -> dict:
-    """Phase 4: the slice through TorchEngine; returns the main path's
-    kernel launch counts."""
+    """Phase 4: the auction slice through TorchEngine; returns its main
+    path's kernel launch counts."""
     fused, TorchEngine = port["fused"], port["TorchEngine"]
     engine = TorchEngine()
 
-    def check_equal(what, got, want):
-        for field in ("node_idx", "free_after", "n_assigned"):
-            if not same(torch, getattr(got, field), getattr(want, field)):
-                fail(f"{what} {field} differs")
-
     cycle_runs, res = wall_ms(torch, lambda: engine.schedule_batch(snap, window, **SLICE_KW))
-    check_equal("schedule_batch (vs the plain path)", res,
+    check_equal(torch, "schedule_batch (vs the plain path)", res,
                 engine.schedule_batch(snap, window, **SLICE_KW, _plain=True))
     cycle_ms = statistics.median(cycle_runs)
     emit({"phase": "schedule_batch", "pods": WINDOW,
@@ -285,20 +380,14 @@ def run_slice(torch, port, snap, pods, window) -> dict:
     main_runs, out = wall_ms(torch, run_backlog, n=1)         # the main path
     launches = dict(fused.launches)
     more_runs, _ = wall_ms(torch, run_backlog, n=2)
-    check_equal("schedule_windows (vs the plain path)", out,
+    check_equal(torch, "schedule_windows (vs the plain path)", out,
                 engine.schedule_windows(snap, pods_w, **SLICE_KW, _plain=True))
-    for name, cnt in launches.items():
-        if cnt <= 0:
+    for name, path in MAIN_PATH.items():
+        if path == "auction" and launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
     n_pods = WINDOW * N_WINDOWS
     n_nodes = snap.allocatable.shape[0]
-    assigned = int(out.n_assigned)
-    if tuple(out.node_idx.shape) != (N_WINDOWS, WINDOW) or bool((out.node_idx >= n_nodes).any()):
-        fail("schedule_windows node_idx has the wrong shape or range")
-    if not bool(torch.isfinite(out.free_after).all()) or bool((out.free_after < 0).any()):
-        fail("schedule_windows free_after is not finite and non-negative")
-    if assigned < 0.5 * n_pods:
-        fail(f"schedule_windows assigned only {assigned}/{n_pods} pods")
+    assigned = check_backlog(torch, "schedule_windows", out, N_WINDOWS, n_nodes, 0.5)
     backlog_runs = main_runs + more_runs
     backlog_ms = statistics.median(backlog_runs)
     emit({"phase": "schedule_windows", "windows": N_WINDOWS, "window": WINDOW,
@@ -319,11 +408,196 @@ def run_slice(torch, port, snap, pods, window) -> dict:
         port["gen_pods"](96, seed=4, gpu=True, device="cpu"), 32)
     cpu_out = TorchEngine(device="cpu").schedule_windows(small, small_w, **SLICE_KW)
     gpu_out = engine.schedule_windows(small, small_w, **SLICE_KW)
-    check_equal("small cluster (card vs CPU path)",
+    check_equal(torch, "small cluster (card vs CPU path)",
                 type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
     emit({"phase": "card_vs_cpu", "nodes": 300, "pods": 96,
           "n_assigned": int(gpu_out.n_assigned), "equal": True})
     return launches
+
+
+def run_greedy(torch, port, snap, pods) -> dict:
+    """Phase 5: the greedy backlog through TorchEngine; returns its main
+    path's kernel launch counts."""
+    fused = port["fused"]
+    engine = port["TorchEngine"]()
+    backlog = type(pods)(*[f[: WINDOW * N_WINDOWS] for f in pods])
+    pods_w = port["stack_windows"](backlog, WINDOW)
+    run_backlog = lambda: engine.schedule_windows(snap, pods_w, **GREEDY_KW)  # noqa: E731
+    run_backlog()                                             # warm-up
+    torch.cuda.synchronize()
+    fused.reset_launches()
+    main_runs, out = wall_ms(torch, run_backlog, n=1)         # the main path
+    launches = dict(fused.launches)
+    more_runs, _ = wall_ms(torch, run_backlog, n=2)
+    check_equal(torch, "greedy schedule_windows (vs the plain path)", out,
+                engine.schedule_windows(snap, pods_w, **GREEDY_KW, _plain=True))
+    want = {"masked_score": N_WINDOWS, "row_stats": N_WINDOWS, "auction_bid": 0,
+            "greedy_scan": N_WINDOWS}
+    if launches != want:
+        fail(f"greedy backlog launched {launches}, not {want}")
+    n_nodes = snap.allocatable.shape[0]
+    assigned = check_backlog(torch, "greedy schedule_windows", out, N_WINDOWS, n_nodes, 0.5)
+    backlog_runs = main_runs + more_runs
+    backlog_ms = statistics.median(backlog_runs)
+    n_pods = WINDOW * N_WINDOWS
+    emit({"phase": "greedy_schedule_windows", "windows": N_WINDOWS, "window": WINDOW,
+          "nodes": n_nodes, "backlog_ms": backlog_ms, "backlog_ms_runs": backlog_runs,
+          "pods_per_s": n_pods / (backlog_ms / 1e3), "n_assigned": assigned,
+          "launches": launches, "equal_to_plain": True})
+    emit({"phase": "profile_greedy_schedule_windows",
+          **device_profile(torch, run_backlog, backlog_ms)})
+    return launches
+
+
+def one_hot(torch, sel, s: int):
+    """[P, S] bool: each pod's selector ids as a set (ids outside [0, S)
+    left out)."""
+    hot = torch.zeros(sel.shape[0], s + 1, dtype=torch.bool)
+    ok = (sel >= 0) & (sel < s)
+    hot.scatter_(1, torch.where(ok, sel, s).long(), True)
+    return hot[:, :s]
+
+
+def final_violations(torch, snap, pods, node_idx) -> dict:
+    """Hard (anti)affinity breaks in a backlog's final placements, counted
+    independently of the engine's code: for every placed pod, from the
+    base counts plus every placement of the backlog, less the pod itself,
+    in each of its node's domains, a required selector must be present, a
+    forbidden one absent, and no avoider of a selector the pod matches
+    may be there. Counts only grow during a backlog, so each holds at the
+    end whenever it held when the pod was placed."""
+    dom = snap.domain_id.cpu().long()
+    base, base_avoid = snap.domain_counts.cpu(), snap.avoid_counts.cpu()
+    n, s = base.shape
+    idx = node_idx.reshape(-1).cpu().long()
+    placed = idx >= 0
+    at_node = idx.clamp(min=0)
+    matches = pods.pod_matches.cpu()
+    matches = torch.nn.functional.pad(matches, (0, max(s - matches.shape[1], 0)))[:, :s]
+    aff_sel, anti_sel = pods.affinity_sel.cpu(), pods.anti_affinity_sel.cpu()
+    has_anti, needs = one_hot(torch, anti_sel, s), one_hot(torch, aff_sel, s)
+    cols = torch.arange(s).expand(int(placed.sum()), s)
+    rows = dom[idx[placed]]
+    added = torch.zeros(n, s).index_put_((rows, cols), matches[placed].float(), accumulate=True)
+    added_av = torch.zeros(n, s).index_put_((rows, cols), has_anti[placed].float(),
+                                            accumulate=True)
+    at = dom[at_node]
+    all_cols = torch.arange(s).expand_as(at)
+    others = base[at_node] + added[at, all_cols] - matches.float()
+    avoiders = base_avoid[at_node] + added_av[at, all_cols] - has_anti.float()
+    stale = (aff_sel >= s).any(-1) | (anti_sel >= s).any(-1)
+    bad = {
+        "anti_affinity": (has_anti & (others > 0)).any(-1),
+        "affinity": (needs & ~(others > 0)).any(-1) | stale,
+        "reverse_avoider": (matches & (avoiders > 0)).any(-1),
+    }
+    out = {k: int((placed & v).sum()) for k, v in bad.items()}
+    out["placed_checked"] = int(placed.sum())
+    return out
+
+
+def count_rounds(port, fn):
+    """(fn(), auction rounds it ran): one segmented admission per round."""
+    mod = port["assign"]
+    real, calls = mod._segmented_admission, []
+
+    def counting(*args):
+        calls.append(1)
+        return real(*args)
+
+    mod._segmented_admission = counting
+    try:
+        return fn(), len(calls)
+    finally:
+        mod._segmented_admission = real
+
+
+def run_affinity(torch, port, dev) -> None:
+    """Phase 6: both assigners with affinity_aware=True on
+    constraints-5kx5k, each equal to its plain run and free of hard
+    (anti)affinity breaks."""
+    fused = port["fused"]
+    engine = port["TorchEngine"]()
+    snap, pods = port["gen_config"]("constraints-5kx5k", seed=0, device=dev)
+    padded = port["pad_pod_batch"](pods, AFFINITY_WINDOWS * WINDOW)
+    pods_w = port["stack_windows"](padded, WINDOW)
+    n_nodes = snap.allocatable.shape[0]
+    for name, kw in AFFINITY_KW.items():
+        run = lambda: engine.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        runs, out = wall_ms(torch, run, n=1)
+        launches = dict(fused.launches)
+        more_runs, _ = wall_ms(torch, run, n=1 if name == "greedy" else 2)
+        plain, rounds = count_rounds(
+            port, lambda: engine.schedule_windows(snap, pods_w, **kw, _plain=True))
+        check_equal(torch, f"affinity {name} schedule_windows (vs the plain path)", out, plain)
+        want = {"masked_score": AFFINITY_WINDOWS, "row_stats": AFFINITY_WINDOWS,
+                "auction_bid": 0, "greedy_scan": 0}
+        if launches != want:
+            fail(f"affinity {name} backlog launched {launches}, not {want}")
+        assigned = check_backlog(torch, f"affinity {name} schedule_windows", out,
+                                 AFFINITY_WINDOWS, n_nodes, 0.5)
+        viol = final_violations(torch, snap, padded, out.node_idx)
+        if any(v for k, v in viol.items() if k != "placed_checked"):
+            fail(f"affinity {name} backlog breaks hard constraints: {viol}")
+        all_runs = runs + more_runs
+        backlog_ms = statistics.median(all_runs)
+        emit({"phase": f"affinity_{name}_schedule_windows", "config": "constraints-5kx5k",
+              "windows": AFFINITY_WINDOWS, "window": WINDOW, "nodes": n_nodes,
+              "pods": int(pods.request.shape[0]),
+              "selectors": int(snap.domain_counts.shape[1]),
+              "backlog_ms": backlog_ms, "backlog_ms_runs": all_runs,
+              "pods_per_s": AFFINITY_WINDOWS * WINDOW / (backlog_ms / 1e3),
+              "n_assigned": assigned,
+              "auction_rounds_per_window": (rounds / AFFINITY_WINDOWS
+                                            if name == "auction" else None),
+              "launches": launches, "violations": viol, "equal_to_plain": True})
+        if name == "auction":
+            emit({"phase": "profile_affinity_auction_schedule_windows",
+                  **device_profile(torch, run, backlog_ms)})
+
+
+def check_greedy_host_reads(torch, port, dev) -> None:
+    """Phase 6b: neither greedy scan reads from the card per pod. Both run
+    on one constraints window under torch.cuda.set_sync_debug_mode("error"),
+    which raises on a synchronising call (a prototype detector: it does
+    not see every kind of sync)."""
+    snap = port["gen_cluster"](5_000, seed=0, constraints=True, device=dev)
+    pods = port["gen_pods"](256, seed=1, constraints=True, device=dev)
+    raw = port["fused"].fused_masked_score(
+        **port["fused_score_operands"](snap, pods, include_pod_affinity=False),
+        normalizer="min_max")
+    args = (raw, raw > port["NEG"] * 0.5, pods.request,
+            port["compute_free_capacity"](snap), pods.priority, pods.pod_mask)
+    aff = port["make_affinity_state"](snap, pods)
+    for name, kw in (("greedy", {}), ("affinity_greedy", {"affinity": aff})):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = port["assign"].greedy_assign(*args, **kw)
+        except RuntimeError as e:
+            fail(f"{name} scan synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        emit({"phase": f"host_reads_{name}", "pods": 256, "nodes": 5_000,
+              "n_assigned": int(out.n_assigned), "host_syncs_detected": 0})
+
+
+def run_card_vs_cpu(torch, port) -> None:
+    """Phase 7: the new options on a small constraints cluster, the card's
+    path against the port's CPU path."""
+    small = port["gen_cluster"](300, seed=3, constraints=True, device="cpu")
+    small_w = port["stack_windows"](
+        port["gen_pods"](96, seed=4, constraints=True, device="cpu"), 32)
+    for name, kw in (("greedy", GREEDY_KW), ("affinity_greedy", AFFINITY_KW["greedy"]),
+                     ("affinity_auction", AFFINITY_KW["auction"])):
+        cpu_out = port["TorchEngine"](device="cpu").schedule_windows(small, small_w, **kw)
+        gpu_out = port["TorchEngine"]().schedule_windows(small, small_w, **kw)
+        check_equal(torch, f"small constraints cluster, {name} (card vs CPU path)",
+                    type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
+        emit({"phase": f"card_vs_cpu_{name}", "nodes": 300, "pods": 96,
+              "n_assigned": int(gpu_out.n_assigned), "equal": True})
 
 
 def main() -> None:
@@ -338,11 +612,17 @@ def main() -> None:
         from kubernetes_scheduler_tpu_torch.engine import (
             compute_free_capacity,
             fused_score_operands,
+            make_affinity_state,
         )
-        from kubernetes_scheduler_tpu_torch.ops import _build, fused
-        from kubernetes_scheduler_tpu_torch.ops.assign import NEG, auction_values
+        from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
+        from kubernetes_scheduler_tpu_torch.ops.assign import (
+            NEG,
+            auction_values,
+            greedy_scan_operands,
+        )
         from kubernetes_scheduler_tpu_torch.ops.score import alpha_beta
         from kubernetes_scheduler_tpu_torch.sim import gen_cluster, gen_config, gen_pods
+        from kubernetes_scheduler_tpu_torch.utils.padding import pad_pod_batch
     except ImportError as e:
         fail(f"the port is not importable (run from the repository root): {e}")
     if "jax" in sys.modules:
@@ -352,6 +632,9 @@ def main() -> None:
         compute_free_capacity=compute_free_capacity, NEG=NEG,
         fused_score_operands=fused_score_operands, auction_values=auction_values,
         alpha_beta=alpha_beta, gen_cluster=gen_cluster, gen_pods=gen_pods,
+        gen_config=gen_config, greedy_scan_operands=greedy_scan_operands,
+        assign=assign, pad_pod_batch=pad_pod_batch,
+        make_affinity_state=make_affinity_state,
     )
 
     # ---- 1. device -------------------------------------------------------
@@ -384,22 +667,34 @@ def main() -> None:
     sel_pods = gen_pods(WINDOW, seed=1, constraints=True, device=dev)
     results = check_kernels(torch, port, snap, window, sel_snap, sel_pods)
 
-    # ---- 4. the slice through TorchEngine --------------------------------
-    launches = run_slice(torch, port, snap, pods, window)
+    # ---- 4. the auction slice through TorchEngine -----------------------
+    launches = {"auction": run_slice(torch, port, snap, pods, window)}
 
-    # ---- 5. the kernels line and the result -----------------------------
+    # ---- 5. the greedy backlog ------------------------------------------
+    launches["greedy"] = run_greedy(torch, port, snap, pods)
+
+    # ---- 6. the affinity paths on constraints-5kx5k ---------------------
+    run_affinity(torch, port, dev)
+    check_greedy_host_reads(torch, port, dev)
+
+    # ---- 7. the new options, card vs the port's CPU path ----------------
+    run_card_vs_cpu(torch, port)
+
+    # ---- 8. the kernels line and the result -----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "kubernetes_scheduler_tpu_torch/csrc/fused.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": launches[MAIN_PATH[name]][name],
             "max_abs_err": max(x["max_abs_err"] for x in lines),
             "ms": main_line["kernel_ms"], "plain_ms": main_line["plain_ms"],
             "bound_ms": main_line["bound_us"] / 1e3,
             "bound_by": main_line["bound_by"], "library_ms": None,
             "parity": "bitwise", "case": MAIN_CASE[name],
+            "main_path": f"{MAIN_PATH[name]} backlog",
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

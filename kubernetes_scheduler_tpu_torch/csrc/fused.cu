@@ -6,6 +6,7 @@
 //   masked_score_kernel  K1  fused_masked_score     (pallas_fused.py:252)
 //   row_stats_kernel     K2  fused_score_row_stats  (pallas_fused.py:385)
 //   auction_bid_kernel   K3  fused_auction_bid      (pallas_fused.py:581)
+//   greedy_scan_kernel   K4  fused_greedy_scan      (pallas_fused.py:476)
 //
 // Each kernel sits behind a plain C function (ks_*) that launches it on
 // the caller's stream and returns cudaGetLastError(); ops/fused.py binds
@@ -238,6 +239,100 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
   }
 }
 
+// K4: the sequential greedy scan over pods in scan (priority) order,
+// replacing fused_greedy_scan (pallas_fused.py:476, body _greedy_kernel
+// :421). Pod i takes the first column of the row maximum of sj over cells
+// with sj > NEG/2 and capacity for every requested resource (an
+// unrequested resource never excludes a node); its request is subtracted
+// from that one column before pod i + 1 reads `free`. picks[i] = -1, and
+// nothing changes, when no cell qualifies.
+//
+// Bound on the H100: bytes. sj is read once, p * n * 4 B (1,024 x 10,000
+// on the main path: about 41 MB, about 12 us at 3.35 TB/s); everything
+// else is small. Every pod depends on the capacity the previous one left,
+// and CUDA blocks carry nothing between them, so ONE block of kGreedyThreads
+// threads walks the pods in order: each thread folds a strided slice of
+// the row into a first-max (value, column) pair, the block reduces the
+// pairs with K3's rule, thread 0 writes the pick and decrements the chosen
+// column, and a barrier publishes it before the next pod. The p
+// block-wide reductions in sequence, on one SM, keep this kernel far above
+// the byte bound; PERF.md records its time as it is.
+//
+// `free` lives in the free_after output in device memory (n * r * 4 B:
+// 120 KB at r = 3, in L2), so any n and r work, including n * r * 4 B
+// above a block's 227 KB of shared memory. It is read with plain loads,
+// never the read-only path: thread 0 writes it between pods, and
+// __syncthreads() makes that write visible to the block.
+constexpr int kGreedyThreads = 1024;
+constexpr int kGreedyWarps = kGreedyThreads / 32;
+
+__global__ void __launch_bounds__(kGreedyThreads) greedy_scan_kernel(
+    const float* __restrict__ sj, const float* __restrict__ req,
+    const float* __restrict__ free0, float* free_cap, int* __restrict__ picks,
+    int p, int n, int r) {
+  __shared__ float s_req[kMaxRes];
+  __shared__ float s_val[kGreedyWarps];
+  __shared__ int s_col[kGreedyWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  for (size_t at = threadIdx.x; at < (size_t)n * r; at += blockDim.x)
+    free_cap[at] = free0[at];
+  for (int i = 0; i < p; ++i) {
+    // the previous pod's decrement and shared rows are complete
+    __syncthreads();
+    for (int k = threadIdx.x; k < r; k += blockDim.x)
+      s_req[k] = req[(size_t)i * r + k];
+    __syncthreads();
+    const float* row = sj + (size_t)i * n;
+    float best = __int_as_float(0xff800000);  // -inf
+    int best_col = INT_MAX;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const float x = row[j];
+      if (x > kNegHalf && x > best) {  // columns ascend: first max kept
+        bool cap = true;
+        for (int k = 0; k < r; ++k) {
+          const float q = s_req[k];
+          cap = cap && (q <= free_cap[(size_t)j * r + k] || q == 0.0f);
+        }
+        if (cap) {
+          best = x;
+          best_col = j;
+        }
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o_val = __shfl_down_sync(0xffffffffu, best, off);
+      const int o_col = __shfl_down_sync(0xffffffffu, best_col, off);
+      if (bid_better(o_val, o_col, best, best_col)) {
+        best = o_val;
+        best_col = o_col;
+      }
+    }
+    if (lane == 0) {
+      s_val[warp] = best;
+      s_col[warp] = best_col;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < n_warps; ++w) {
+        if (bid_better(s_val[w], s_col[w], best, best_col)) {
+          best = s_val[w];
+          best_col = s_col[w];
+        }
+      }
+      const bool found = best_col != INT_MAX;
+      picks[i] = found ? best_col : -1;
+      if (found) {
+        for (int k = 0; k < r; ++k) {
+          const size_t at = (size_t)best_col * r + k;
+          free_cap[at] = __fsub_rn(free_cap[at], s_req[k]);
+        }
+      }
+    }
+  }
+}
+
 inline int grid_rows(int p) { return p < kMaxGridY ? p : kMaxGridY; }
 
 }  // namespace
@@ -298,6 +393,17 @@ int ks_auction_bid(const void* sj, const void* price, const void* active,
         static_cast<const float*>(req), static_cast<const float*>(free_cap),
         static_cast<int*>(bid), static_cast<int*>(has), p, n, r);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int ks_greedy_scan(const void* sj, const void* req, const void* free0,
+                   void* free_cap, void* picks, int p, int n, int r,
+                   void* stream) {
+  greedy_scan_kernel<<<1, kGreedyThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sj), static_cast<const float*>(req),
+      static_cast<const float*>(free0), static_cast<float*>(free_cap),
+      static_cast<int*>(picks), p, n, r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,20 +1,23 @@
 """The batch scheduling engine on PyTorch (counterpart of
-kubernetes_scheduler_tpu/engine.py, the fused auction path).
+kubernetes_scheduler_tpu/engine.py, the fused path).
 
 For a window of pending pods and a cluster snapshot, one cycle computes
 
     utilization stats -> fused masked score (K2 bounds, K1 score and
-    feasibility) -> auction assignment (K3 bid head per round) -> gangs
+    feasibility) -> greedy (K4 scan) or auction (K3 bid head per round)
+    assignment -> gangs
 
 and returns pod -> node bindings; `schedule_windows` carries node
-capacity and domain counts across a backlog of windows. The types mirror
-the reference's NamedTuples field for field, with torch tensors as
-leaves on one explicit device.
+capacity and domain counts across a backlog of windows. With
+affinity_aware=True, K1 runs without the count-based selector families
+and both assigners enforce them against live in-window counts. The
+types mirror the reference's NamedTuples field for field, with torch
+tensors as leaves on one explicit device.
 
 Ported: fused=True with policy balanced_cpu_diskio, normalizer "none" or
-"min_max", assigner "auction" and affinity_aware=False, on selector axes
-up to MAX_FUSED_SELECTORS. Every other option raises NotImplementedError
-naming the ROADMAP item that adds it.
+"min_max", assigner "greedy" or "auction", affinity_aware False or True,
+on selector axes up to MAX_FUSED_SELECTORS. Every other option raises
+NotImplementedError naming the ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ import torch
 from kubernetes_scheduler_tpu_torch.device import resolve_device
 from kubernetes_scheduler_tpu_torch.ops.assign import (
     NEG,
+    AffinityState,
+    AssignResult,
     auction_assign,
+    greedy_assign,
     pod_has_anti_onehot,
 )
 from kubernetes_scheduler_tpu_torch.ops.constraints import (
@@ -401,13 +407,17 @@ def _fused_affinity_operands(
     return aff_pod.contiguous(), aff_node.contiguous(), valid
 
 
-def fused_score_operands(snapshot: SnapshotArrays, pods: PodBatch) -> dict:
-    """Keyword arguments of ops.fused.fused_masked_score for one window
-    without in-window affinity (the selector families are evaluated
-    against pre-window counts): the utilization vectors, resources, pod
-    mask (with selector validity), nodeName pins, the count-based selector
-    rows K1 folds, and the `other` mask (cards & taints & node affinity,
-    plain PyTorch, as in the reference)."""
+def fused_score_operands(
+    snapshot: SnapshotArrays, pods: PodBatch, *, include_pod_affinity: bool = True
+) -> dict:
+    """Keyword arguments of ops.fused.fused_masked_score for one window:
+    the utilization vectors, resources, pod mask, nodeName pins, and the
+    `other` mask (cards & taints & node affinity, plain PyTorch, as in
+    the reference). With include_pod_affinity (affinity_aware=False) the
+    count-based selector families are evaluated against pre-window counts:
+    K1 folds their selector rows and the pod mask carries selector
+    validity. Without it (affinity_aware=True) K1 gets no selector rows:
+    the assigners enforce those families against live counts."""
     stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
     s = snapshot.domain_counts.shape[1]
     if s > MAX_FUSED_SELECTORS:
@@ -416,7 +426,11 @@ def fused_score_operands(snapshot: SnapshotArrays, pods: PodBatch) -> dict:
             "fallback for the count-based families)",
             "'the wide-selector fallback'",
         )
-    aff_pod, aff_node, valid = _fused_affinity_operands(snapshot, pods)
+    aff_pod = aff_node = None
+    pod_ok = pods.pod_mask
+    if include_pod_affinity:
+        aff_pod, aff_node, valid = _fused_affinity_operands(snapshot, pods)
+        pod_ok = pod_ok & valid
     gpu_fits, _ = card_fit(
         snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
         pods.want_number, pods.want_memory, pods.want_clock,
@@ -432,7 +446,7 @@ def fused_score_operands(snapshot: SnapshotArrays, pods: PodBatch) -> dict:
         u=stats.u, v=stats.v, node_mask=snapshot.node_mask,
         alloc=snapshot.allocatable, reqd=snapshot.requested,
         r_cpu=pods.request[:, 0], r_io=pods.r_io, pod_request=pods.request,
-        pod_mask=pods.pod_mask & valid, target_node=pods.target_node,
+        pod_mask=pod_ok, target_node=pods.target_node,
         other=other.to(_F32),
         aff_pod=aff_pod, aff_node=aff_node,
     )
@@ -442,14 +456,35 @@ def _fused_masked_scores(
     snapshot: SnapshotArrays,
     pods: PodBatch,
     *,
+    include_pod_affinity: bool,
     normalizer: str = "none",
     _plain: bool = False,
 ) -> torch.Tensor:
     """[p, n] score where feasible, NEG elsewhere, through K2 and K1 (the
-    score, resource fit, nodeName pin, selector families and `other` mask
-    in one kernel pass)."""
-    return fused_masked_score(
-        **fused_score_operands(snapshot, pods), normalizer=normalizer, _plain=_plain
+    score, resource fit, nodeName pin, the selector families when
+    include_pod_affinity, and the `other` mask in one kernel pass)."""
+    ops = fused_score_operands(
+        snapshot, pods, include_pod_affinity=include_pod_affinity
+    )
+    return fused_masked_score(**ops, normalizer=normalizer, _plain=_plain)
+
+
+def make_affinity_state(snapshot: SnapshotArrays, pods: PodBatch) -> AffinityState:
+    """Live inter-pod (anti)affinity state for the assigners: base domain
+    match and avoider counts from the snapshot plus the pod-side selector
+    structure, selector dimensions aligned."""
+    s = snapshot.domain_counts.shape[1]
+    return AffinityState(
+        domain_counts=snapshot.domain_counts,
+        domain_id=snapshot.domain_id,
+        pod_matches=match_matrix(pods, s),
+        affinity_sel=pods.affinity_sel,
+        anti_affinity_sel=pods.anti_affinity_sel,
+        avoid_counts=snapshot.avoid_counts,
+        pod_has_anti=pod_has_anti_onehot(pods.anti_affinity_sel, s),
+        spread_sel=pods.spread_sel,
+        spread_max=pods.spread_max,
+        node_mask=snapshot.node_mask,
     )
 
 
@@ -460,17 +495,27 @@ def finish_cycle(
     norm: torch.Tensor,
     feasible: torch.Tensor,
     *,
+    assigner: str = "greedy",
+    affinity_aware: bool = True,
     auction_rounds: int = 1024,
     auction_price_frac: float = 1.0,
     _plain: bool = False,
 ) -> ScheduleResult:
-    """Cycle tail: auction assignment (without affinity), then the
-    all-or-nothing gang pass."""
-    res = auction_assign(
-        norm, feasible, pods.request, compute_free_capacity(snapshot),
-        pods.priority, pods.pod_mask,
-        rounds=auction_rounds, price_frac=auction_price_frac, _plain=_plain,
-    )
+    """Cycle tail: greedy or auction assignment (with live in-window
+    affinity when affinity_aware), then the all-or-nothing gang pass."""
+    free = compute_free_capacity(snapshot)
+    affinity = make_affinity_state(snapshot, pods) if affinity_aware else None
+    if assigner == "greedy":
+        res: AssignResult = greedy_assign(
+            norm, feasible, pods.request, free, pods.priority, pods.pod_mask,
+            affinity=affinity, _plain=_plain,
+        )
+    else:
+        res = auction_assign(
+            norm, feasible, pods.request, free, pods.priority, pods.pod_mask,
+            rounds=auction_rounds, price_frac=auction_price_frac,
+            affinity=affinity, _plain=_plain,
+        )
     node_idx, free_after, n_assigned = gang_mask_assign(
         pods.gang_id, pods.gang_size, pods.pod_mask,
         res.node_idx, pods.request, res.free_after, res.n_assigned,
@@ -483,6 +528,9 @@ def finish_cycle(
         free_after=free_after,
         n_assigned=n_assigned,
     )
+
+
+ASSIGNERS = ("greedy", "auction")
 
 
 def schedule_batch(
@@ -503,10 +551,13 @@ def schedule_batch(
 ) -> ScheduleResult:
     """One scheduling cycle for the whole pending window, on the device
     the tensors live on (reference: engine.schedule_batch; the defaults
-    are the reference's). The ported path is fused=True,
-    assigner="auction", affinity_aware=False: K2 and K1 build the masked
-    score matrix, the auction's rounds run K3. As in the reference's fused
-    replies, `scores` and `raw_scores` are the masked matrix.
+    are the reference's). The ported path is fused=True: K2 and K1 build
+    the masked score matrix, then the greedy scan runs K4 or the
+    auction's rounds run K3. With affinity_aware=True, K1 leaves out the
+    count-based selector families and the assigner enforces them against
+    live in-window counts (plain PyTorch, as the reference's XLA bodies).
+    As in the reference's fused replies, `scores` and `raw_scores` are
+    the masked matrix.
 
     `_plain=True` runs every kernel's plain PyTorch version instead, on
     any device, to hold the kernel path against it."""
@@ -524,16 +575,16 @@ def schedule_batch(
     check_fused_contract(policy, normalizer)
     if soft:
         raise _not_ported("soft=True", "'soft scores'")
-    if assigner != "auction":
-        raise _not_ported(f"assigner={assigner!r}", "'greedy with K4'")
-    if affinity_aware:
-        raise _not_ported(
-            "affinity_aware=True", "'the affinity-aware auction and greedy'"
-        )
-    raw = _fused_masked_scores(snapshot, pods, normalizer=normalizer, _plain=_plain)
+    if assigner not in ASSIGNERS:
+        raise ValueError(f"assigner must be one of {ASSIGNERS}, not {assigner!r}")
+    raw = _fused_masked_scores(
+        snapshot, pods, include_pod_affinity=not affinity_aware,
+        normalizer=normalizer, _plain=_plain,
+    )
     feasible = raw > NEG * 0.5
     return finish_cycle(
         snapshot, pods, raw, raw, feasible,
+        assigner=assigner, affinity_aware=affinity_aware,
         auction_rounds=auction_rounds, auction_price_frac=auction_price_frac,
         _plain=_plain,
     )

@@ -40,6 +40,8 @@ SIGNATURES = {
     "ks_row_stats": [_P] * 6 + [_I] * 2 + [_P],
     # sj, price, active, req, free, bid, has, p, n, r, stream
     "ks_auction_bid": [_P] * 7 + [_I] * 3 + [_P],
+    # sj, req, free0, free_after, picks, p, n, r, stream
+    "ks_greedy_scan": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

@@ -29,6 +29,16 @@ pod row, streaming the row once with (value, column) pairs reduced
 first-max; inactive pods read nothing, and no [p, n, r] capacity
 broadcast or [p, n] bid row is materialized.
 
+K4 `greedy_scan` replaces `fused_greedy_scan` (pallas_fused.py:476, body
+`_greedy_kernel` :421). The greedy assigner's sequential scan over pods
+in priority order: per pod, the first column of the row maximum over
+cells with sj > NEG/2 and capacity for every requested resource, then
+the pod's request subtracted from that column only, before the next pod
+reads the free capacity. Bound: the bytes of sj, read once. Design: one
+block walks the pods in order (the carry makes every pod depend on the
+previous one), with `free` in the free_after buffer in device memory;
+see csrc/fused.cu for why it sits far above its bound.
+
 Every wrapper takes its plain version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. `_plain=True` (used to hold
 the kernels against their plain versions on the card) takes the plain
@@ -52,7 +62,7 @@ MAX_RESOURCES = 32
 
 # launches of each kernel since the last reset_launches(); only the
 # launch sites below add to these
-launches = {"masked_score": 0, "row_stats": 0, "auction_bid": 0}
+launches = {"masked_score": 0, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0}
 
 
 def reset_launches() -> None:
@@ -322,3 +332,59 @@ def auction_bid(sj, price, active, req, free, *, _plain=False):
     check_launch(lib, rc, "auction_bid")
     launches["auction_bid"] += 1
     return bid, has > 0
+
+
+# ---- K4 ---------------------------------------------------------------
+
+
+def greedy_scan_plain(sj, req, free0):
+    """K4's plain version (the reference's scan body without affinity,
+    ops/assign.py:321-342): a loop over pods on tensors, with no host read
+    per pod. Subtracting a zero row where no cell was found leaves `free`
+    bitwise unchanged, so the update needs no branch."""
+    p = sj.shape[0]
+    free = free0.clone()
+    picks = torch.full((p,), -1, dtype=torch.int32, device=sj.device)
+    for i in range(p):
+        q = req[i]
+        cap_ok = ((q[None, :] <= free) | (q[None, :] == 0)).all(-1)
+        mask = (sj[i] > NEG * 0.5) & cap_ok
+        choice = torch.argmax(torch.where(mask, sj[i], NEG)).view(1)
+        found = mask.any()
+        picks[i] = torch.where(found, choice[0].to(torch.int32), -1)
+        free.index_copy_(0, choice, free.index_select(0, choice)
+                         - torch.where(found, q, 0.0)[None, :])
+    return picks, free
+
+
+def greedy_scan(sj, req, free0, *, _plain=False):
+    """K4: the greedy scan, (picks [p] int32, free_after [n, r] f32).
+
+    sj [p, n] f32 masked scores in scan order (NEG where infeasible or the
+    pod is masked); req [p, r] f32 requests in the same order; free0
+    [n, r] f32 free capacity before the window. picks[i] is pod i's node,
+    -1 when no cell qualifies."""
+    if not _use_kernel(sj, _plain):
+        return greedy_scan_plain(sj, req, free0)
+    dev = sj.device
+    p, n = sj.shape
+    r = req.shape[1]
+    f32 = torch.float32
+    for name, t, dtype, shape in (
+        ("sj", sj, f32, (p, n)), ("req", req, f32, (p, r)),
+        ("free0", free0, f32, (n, r)),
+    ):
+        _check(name, t, dtype, shape, dev)
+    if r > MAX_RESOURCES:
+        raise ValueError(f"greedy_scan: {r} resources > {MAX_RESOURCES}")
+    picks = torch.empty(p, dtype=torch.int32, device=dev)
+    free_after = torch.empty((n, r), dtype=f32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.ks_greedy_scan(
+            _ptr(sj), _ptr(req), _ptr(free0), _ptr(free_after), _ptr(picks),
+            p, n, r, _stream(dev),
+        )
+    check_launch(lib, rc, "greedy_scan")
+    launches["greedy_scan"] += 1
+    return picks, free_after

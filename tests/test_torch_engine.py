@@ -105,14 +105,16 @@ def test_torch_generator_matches_reference(features):
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [dict(KW, fused=False), dict(KW, assigner="greedy"),
-     dict(KW, affinity_aware=True), dict(KW, soft=True),
-     dict(KW, score_plugins=(("least_allocated", 1.0),))],
-    ids=["composed", "greedy", "affinity", "soft", "plugins"],
+    "kw,n_sel",
+    [(dict(KW, fused=False), 1), (dict(KW, assigner="greedy", fused=False), 1),
+     (dict(KW, affinity_aware=True), 33), (dict(KW, soft=True), 1),
+     (dict(KW, score_plugins=(("least_allocated", 1.0),)), 1)],
+    ids=["composed", "composed-greedy", "wide-selectors", "soft", "plugins"],
 )
-def test_torch_unported_options_raise(kw):
+def test_torch_unported_options_raise(kw, n_sel):
     _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
+    if n_sel > 1:  # a selector axis above MAX_FUSED_SELECTORS
+        ts = ts._replace(domain_counts=torch.zeros(16, n_sel))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.schedule_batch(ts, tp, **kw)
     with pytest.raises(ValueError, match="normalizer"):

@@ -108,4 +108,9 @@ def test_torch_wrappers_take_plain_version_on_cpu():
     got_b, got_h = fused.auction_bid(sj, price, active, req, alloc)
     want_b, want_h = fused.auction_bid_plain(sj, price, active, req, alloc)
     assert torch.equal(got_b, want_b) and torch.equal(got_h, want_h)
-    assert fused.launches == {"masked_score": 0, "row_stats": 0, "auction_bid": 0}
+    got_p, got_f = fused.greedy_scan(sj, req, alloc)
+    want_p, want_f = fused.greedy_scan_plain(sj, req, alloc)
+    assert torch.equal(got_p, want_p) and torch.equal(got_f, want_f)
+    assert fused.launches == {
+        "masked_score": 0, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0,
+    }
