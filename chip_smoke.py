@@ -9,10 +9,16 @@ Phases; the first failure exits non-zero and no result line is printed:
 3. kernels: each hand-written kernel (K1 masked_score, K2 row_stats,
    K3 auction_bid, K4 greedy_scan) against its plain PyTorch version on
    the card, at the main path's shapes (1,024 pods x 10,000 nodes x 3
-   resources of the gpu-10kx10k config), bitwise; K4 also on contended
-   capacity, planted ties, all-NEG rows with zero requests on
-   oversubscribed resources, and r = 7; CUDA-event times, median of 25
-   launches;
+   resources of the gpu-10kx10k config), bitwise; K3 also on planted ties
+   and on a late round (~5% of pods active, nonzero prices, the capacity
+   left after a first round); K4 also on contended capacity, planted
+   ties, all-NEG rows with zero requests on oversubscribed resources and
+   r = 7, one-entry candidate lists, lists that run out at a tie
+   boundary, and a negative request that trips its exactness guard, each
+   line with the pods that took K4's row-scan fallback; K3 and K4 also at
+   an odd width (n % 4 != 0: scalar loads); kernel times are device time
+   per launch behind a held stream, plain versions' times CUDA events
+   around one call, median of 25 (5 for K4's plain version);
 4. the auction slice through TorchEngine(): schedule_batch on one
    1,024-pod window and schedule_windows on the 8 x 1,024-pod backlog
    (the first main path; K1-K3's launch counts are read from this run),
@@ -33,15 +39,25 @@ Phases; the first failure exits non-zero and no result line is printed:
 8. the kernels line, then the result line.
 
 Needs torch with CUDA, and nothing of JAX.
+
+    python3 chip_smoke.py --parent-tree DIR
+
+also builds the csrc/fused.cu of DIR, a checkout of commit 1420195 (the K3
+and K4 kernels before their redesign), with the same flags into DIR, and
+times its K3 and K4 beside this tree's on every K3 and K4 case of phase 3,
+in turns (parent, this tree, this tree, parent): `parent_ms`.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -49,6 +65,7 @@ PEAK_F32_OPS_PER_S = 67e12
 WINDOW = 1024
 N_WINDOWS = 8
 TIMED_LAUNCHES = 25
+SLEEP_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep's unit: SM clock cycles
 SLICE_KW = dict(
     assigner="auction", normalizer="min_max", fused=True, affinity_aware=False
 )
@@ -70,6 +87,13 @@ MAIN_CASE = {
     "row_stats": "gpu-10kx10k window",
     "auction_bid": "first round",
     "greedy_scan": "(a) main path",
+}
+# each kernel's device symbols, as the profiler names them
+SYMBOLS = {
+    "masked_score": ("masked_score_kernel",),
+    "row_stats": ("row_stats_kernel",),
+    "auction_bid": ("auction_bid_kernel",),
+    "greedy_scan": ("greedy_lists_kernel", "greedy_pass_kernel"),
 }
 # the backlog whose run each kernel's launch count is read from
 MAIN_PATH = {
@@ -101,6 +125,37 @@ def cuda_ms(torch, fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, n: int = TIMED_LAUNCHES) -> tuple[float, bool]:
+    """(device ms per call of `fn`, whether the stream was held throughout):
+    `n` calls back to back behind torch.cuda._sleep, which keeps the card
+    busy while the host enqueues them, so the wrapper's host time between
+    launches is not counted. The sleep is four times an unheld run of the
+    same calls (at least 20 ms); a run whose enqueueing outlasted it is
+    taken again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    sleep_s = min(max(4 * (time.perf_counter() - t0), 0.02), 2.0)
+    for _ in range(3):
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        held = slept.elapsed_time(start) > enqueue_ms
+        if held:
+            break
+    return start.elapsed_time(end) / n, held
 
 
 def wall_ms(torch, fn, n: int = 3) -> tuple[list, object]:
@@ -138,8 +193,8 @@ def device_profile(torch, fn, wall_unprofiled_ms: float) -> dict:
         return {"profiled_wall_ms": wall, "device_busy_ms": None,
                 "device_kernels": 0, "idle_share": None}
     busy = sum(by_name.values())
-    ours = {k: sum(v for name, v in by_name.items() if f"{k}_kernel" in name)
-            for k in REPLACES}
+    ours = {k: sum(v for name, v in by_name.items() if any(x in name for x in syms))
+            for k, syms in SYMBOLS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "profiled_wall_ms": wall, "device_busy_ms": busy,
@@ -147,6 +202,8 @@ def device_profile(torch, fn, wall_unprofiled_ms: float) -> dict:
         "idle_share_profiled": 1.0 - busy / wall,
         "idle_share": 1.0 - busy / wall_unprofiled_ms,
         "port_kernels_ms": ours,
+        "greedy_phase_ms": {x: sum(v for name, v in by_name.items() if x in name)
+                            for x in SYMBOLS["greedy_scan"]},
         "other_device_ms": busy - sum(ours.values()),
         "top_device_ms": [[name[:80], ms] for name, ms in top],
     }
@@ -171,8 +228,70 @@ def max_abs_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
-    """Phase 3: {kernel: [result line per case]}."""
+def load_parent(build, tree: str) -> ctypes.CDLL:
+    """K3's and K4's launchers of commit 1420195's csrc/fused.cu (the
+    kernels before their redesign), built with this tree's flags into that
+    tree, with that commit's C interfaces."""
+    pkg = Path(tree) / "kubernetes_scheduler_tpu_torch"
+    path, _ = build.build(pkg / "csrc" / "fused.cu", pkg / "_build")
+    lib = ctypes.CDLL(str(path))
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    # sj, price, active, req, free, bid, has, p, n, r, stream
+    lib.ks_auction_bid.argtypes = [ptr] * 7 + [num] * 3 + [ptr]
+    # sj, req, free0, free_after, picks, p, n, r, stream
+    lib.ks_greedy_scan.argtypes = [ptr] * 5 + [num] * 3 + [ptr]
+    for fn in (lib.ks_auction_bid, lib.ks_greedy_scan):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def parent_k3(torch, lib, sj, price, active, req, free):
+    p, n = sj.shape
+    bid = torch.empty(p, dtype=torch.int32, device=sj.device)
+    has = torch.empty(p, dtype=torch.int32, device=sj.device)
+    rc = lib.ks_auction_bid(sj.data_ptr(), price.data_ptr(), active.data_ptr(),
+                            req.data_ptr(), free.data_ptr(), bid.data_ptr(),
+                            has.data_ptr(), p, n, req.shape[1],
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        fail(f"the parent's auction_bid failed to launch ({rc})")
+    return bid, has > 0
+
+
+def parent_k4(torch, lib, sj, req, free0):
+    p, n = sj.shape
+    picks = torch.empty(p, dtype=torch.int32, device=sj.device)
+    free_after = torch.empty_like(free0)
+    rc = lib.ks_greedy_scan(sj.data_ptr(), req.data_ptr(), free0.data_ptr(),
+                            free_after.data_ptr(), picks.data_ptr(), p, n,
+                            req.shape[1], torch.cuda.current_stream().cuda_stream)
+    if rc:
+        fail(f"the parent's greedy_scan failed to launch ({rc})")
+    return picks, free_after
+
+
+def kernel_times(torch, new_fn, old_fn=None) -> dict:
+    """A kernel's device time per launch (`kernel_ms`, device_ms) and the
+    time of one bracketed call (`call_ms`, cuda_ms: it also counts the
+    wrapper's host work before the launch); with the parent's launcher on
+    the same inputs, both device times in turns: parent, this tree, this
+    tree, parent."""
+    if old_fn is None:
+        ms, held = device_ms(torch, new_fn)
+        return {"kernel_ms": ms, "device_held": held, "call_ms": cuda_ms(torch, new_fn)}
+    old_a, held_a = device_ms(torch, old_fn)
+    new_a, held_b = device_ms(torch, new_fn)
+    new_b, held_c = device_ms(torch, new_fn)
+    old_b, held_d = device_ms(torch, old_fn)
+    return {"kernel_ms": new_a, "kernel_ms_2": new_b, "parent_ms": old_a,
+            "parent_ms_2": old_b, "parent_over_kernel": (old_a + old_b) / (new_a + new_b),
+            "device_held": held_a and held_b and held_c and held_d,
+            "call_ms": cuda_ms(torch, new_fn), "parent_call_ms": cuda_ms(torch, old_fn)}
+
+
+def check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent=None) -> dict:
+    """Phase 3: {kernel: [result line per case]}. `parent`: the parent
+    tree's library, timed beside K3 and K4."""
     fused, NEG = port["fused"], port["NEG"]
     dev = snap.allocatable.device
     results: dict = {name: [] for name in REPLACES}
@@ -214,7 +333,7 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
                 "kernel": "masked_score", "case": f"{tag} minmax={minmax}",
                 "p": p, "n": n, "r": r, "selectors": n_sel,
                 "bitwise": ok, "max_abs_err": max_abs_err(got, want),
-                "kernel_ms": cuda_ms(torch, lambda: fused.masked_score(*pos, **kwm)),
+                **kernel_times(torch, lambda: fused.masked_score(*pos, **kwm)),
                 "plain_ms": cuda_ms(torch, lambda: fused.masked_score_plain(*pos, **kwm)),
                 "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
                 "feasible_cells": int((want > NEG * 0.5).sum()),
@@ -232,7 +351,7 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
     record({
         "kernel": "row_stats", "case": "gpu-10kx10k window", "p": p, "n": n,
         "bitwise": ok, "max_abs_err": max_abs_err(got, want),
-        "kernel_ms": cuda_ms(torch, lambda: fused.row_stats(*args)),
+        **kernel_times(torch, lambda: fused.row_stats(*args)),
         "plain_ms": cuda_ms(torch, lambda: fused.row_stats_plain(*args)),
         "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
     }, ok)
@@ -257,83 +376,148 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods) -> dict:
     tie_active = window.pod_mask.clone()
     tie_active[2::11] = False               # inactive rows
     big_free = torch.full_like(free, 3.0e38)
-    for tag, (s_j, act, fr) in (("first round", (sj, window.pod_mask, free)),
-                                ("planted ties", (tie_sj, tie_active, big_free))):
-        k3 = (s_j, price, act, req, fr)
+    # a late round: the capacity left after the first round's admissions,
+    # prices of a few rounds (multiples of price_frac = 1), ~5% of the pods
+    # still active
+    bid0, has0 = fused.auction_bid_plain(sj, price, window.pod_mask, req, free)
+    by_prio = port["assign"]._priority_order(window.priority, window.pod_mask)
+    admitted = port["assign"]._segmented_admission(bid0, has0, req, free, by_prio)
+    late_free = (free - torch.zeros_like(free).index_add_(
+        0, bid0.long(), torch.where(admitted[:, None], req, 0.0))).contiguous()
+    cpu_gen = torch.Generator().manual_seed(1)
+    late_price = torch.randint(0, 16, (n,), generator=cpu_gen).float().to(dev)
+    left = torch.nonzero((window.pod_mask & ~admitted).cpu()).flatten()
+    left = left[torch.randperm(left.numel(), generator=cpu_gen)[: round(0.05 * p)]]
+    late_active = torch.zeros(p, dtype=torch.bool)
+    late_active[left] = True
+    k3_cases = {
+        "first round": (sj, price, window.pod_mask, req, free),
+        "planted ties": (tie_sj, price, tie_active, req, big_free),
+        "late round": (sj, late_price, late_active.to(dev), req, late_free),
+        # n % 4 != 0: rows are not 16-byte aligned, so scalar loads
+        "odd width": (sj[:, : n - 1].contiguous(), price[: n - 1].contiguous(),
+                      window.pod_mask, req, free[: n - 1].contiguous()),
+    }
+    for tag, k3 in k3_cases.items():
         got_b, got_h = fused.auction_bid(*k3)
         want_b, want_h = fused.auction_bid_plain(*k3)
         torch.cuda.synchronize()
         ok = same(torch, got_b, want_b) and same(torch, got_h, want_h)
         if tag == "planted ties":
-            hit = act[tie_rows] & ~no_cell[tie_rows]
+            hit = k3[2][tie_rows] & ~no_cell[tie_rows]
             ok = ok and bool((got_b[tie_rows][hit] == first[hit].int()).all())
-        n_act = int(act.sum())
-        moved = n_act * n * 4 + nbytes(price, act, req, fr) + 8 * p
-        b_ms, b_by = bound(moved, n_act * n * (3 + 2 * r))
+        old_fn = None
+        if parent is not None:
+            old_b, old_h = parent_k3(torch, parent, *k3)
+            torch.cuda.synchronize()
+            if not (same(torch, old_b, want_b) and same(torch, old_h, want_h)):
+                fail(f"the parent's auction_bid ({tag}) differs from the plain version")
+            old_fn = lambda: parent_k3(torch, parent, *k3)  # noqa: E731
+        n_act, n_k = int(k3[2].sum()), k3[0].shape[1]
+        moved = n_act * n_k * 4 + nbytes(*k3[1:]) + 8 * p
+        b_ms, b_by = bound(moved, n_act * n_k * (3 + 2 * r))
         record({
-            "kernel": "auction_bid", "case": tag, "p": p, "n": n, "r": r,
+            "kernel": "auction_bid", "case": tag, "p": p, "n": n_k, "r": r,
             "active": n_act, "bitwise": ok,
             "max_abs_err": max(max_abs_err(got_b, want_b),
                                max_abs_err(got_h.int(), want_h.int())),
-            "kernel_ms": cuda_ms(torch, lambda: fused.auction_bid(*k3)),
+            **kernel_times(torch, lambda: fused.auction_bid(*k3), old_fn),
             "plain_ms": cuda_ms(torch, lambda: fused.auction_bid_plain(*k3)),
             "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
             "bidders": int(got_h.sum()),
         }, ok)
 
     # K4 on the greedy cycle's operands in scan order, then on contended
-    # capacity, planted ties, and NEG rows with zero requests at r = 7
+    # capacity, planted ties, NEG rows with zero requests at r = 7, one-entry
+    # lists, lists that run out at a tie boundary, and a negative request
     _, sj, req, free = port["greedy_scan_operands"](
         raw, raw > NEG * 0.5, window.request, free, window.priority, window.pod_mask)
     p, n = sj.shape
     r = req.shape[1]
+    rows = torch.arange(p, device=dev)
     cpu_gen = torch.Generator().manual_seed(0)
-    cases = {"(a) main path": (sj, req, free)}
+    cases = {"(a) main path": ((sj, req, free), {})}
     # every pod ranks the nodes alike and a node holds one or two pods, so
     # the decrement decides where later pods go
     rank = torch.randperm(n, generator=cpu_gen).to(dev, torch.float32)
-    cases["(b) contended capacity"] = (
+    cases["(b) contended capacity"] = ((
         torch.where(sj > NEG * 0.5, rank[None, :], NEG).contiguous(), req,
         (req.amax(0) * 1.5).clamp(min=2.0).expand(n, r).contiguous(),
-    )
+    ), {})
     # exact ties in neighbouring threads, warps, and one thread's strides
     tie_sj = sj.clone()
     tie_rows = torch.arange(0, p, 3, device=dev)
     first = (tie_rows * 37) % (n // 10)
     for off in (0, 1, 32, 1024, 1025, n // 2):
         tie_sj[tie_rows, first + off] = 1000.0
-    cases["(c) planted ties"] = (tie_sj, req, torch.full_like(free, 3.0e38))
+    cases["(c) planted ties"] = ((tie_sj, req, torch.full_like(free, 3.0e38)), {})
     # all-NEG rows; four more resources, zero for most pods, oversubscribed
     # (negative) on half the nodes; n * r * 4 B = 280 KB > 227 KB of smem
     neg_sj = sj.clone()
-    neg_sj[torch.arange(p, device=dev) % 7 == 1] = NEG
+    neg_sj[rows % 7 == 1] = NEG
     extra = torch.randint(1, 3, (p, 4), generator=cpu_gen).float()
     extra *= torch.rand(p, 4, generator=cpu_gen) < 0.3
     over = torch.where(torch.rand(n, 4, generator=cpu_gen) < 0.5, -1.0, 4.0)
-    cases["(d) NEG rows, zero requests, r=7"] = (
+    cases["(d) NEG rows, zero requests, r=7"] = ((
         neg_sj, torch.cat([req, extra.to(dev)], 1).contiguous(),
         torch.cat([free, over.to(dev)], 1).contiguous(),
-    )
-    for tag, k4 in cases.items():
-        got_p, got_f = fused.greedy_scan(*k4)
+    ), {})
+    # (a) with one-entry candidate lists: the fallback runs whenever a
+    # pod's best node is taken
+    cases["(e) list length 1"] = ((sj, req, free), {"_list_len": 1})
+    # 2 L equal maxima at spread columns, the same in every row, on nodes
+    # that hold one pod each: the lists run out at a tie boundary
+    n_ties = 2 * fused.GREEDY_LIST_LEN
+    tie_cols = torch.arange(n_ties, device=dev) * (n // n_ties) + 5
+    bound_sj = sj.clone()
+    bound_sj[:, tie_cols] = 1000.0
+    one_pod = req.amax(0).clamp(min=1.0)
+    cases["(f) tie boundary"] = ((
+        bound_sj, one_pod.expand(p, r).contiguous(), one_pod.expand(n, r).contiguous(),
+    ), {})
+    # (a) with a negative request component on one pod in the first third:
+    # capacity grows, so every later pod scans its whole row
+    neg_pod = p // 5
+    neg_req = req.clone()
+    neg_req[neg_pod, 0] = -1.0
+    cases["(g) negative request"] = ((sj, neg_req, free), {})
+    # n % 4 != 0: rows are not 16-byte aligned, so scalar loads
+    cases["(h) odd width"] = ((sj[:, : n - 1].contiguous(), req, free[: n - 1].contiguous()), {})
+    for tag, (k4, kw) in cases.items():
+        got_p, got_f = fused.greedy_scan(*k4, **kw)
+        torch.cuda.synchronize()
+        fallbacks = int(fused.last_greedy_fallbacks)
         want_p, want_f = fused.greedy_scan_plain(*k4)
         torch.cuda.synchronize()
         ok = same(torch, got_p, want_p) and same(torch, got_f, want_f)
         if tag == "(c) planted ties":
             ok = ok and bool((got_p[tie_rows] == first.int()).all())
         if tag.startswith("(d)"):
-            ok = ok and bool((got_p[torch.arange(p, device=dev) % 7 == 1] == -1).all())
-        rk = k4[1].shape[1]
-        b_ms, b_by = bound(nbytes(*k4, got_p, got_f), p * n * (2 + 3 * rk))
+            ok = ok and bool((got_p[rows % 7 == 1] == -1).all())
+        if tag == "(f) tie boundary":
+            ok = ok and bool((got_p[:n_ties] == tie_cols[:p].int()).all())
+        old_fn = None
+        if parent is not None:
+            old_p, old_f = parent_k4(torch, parent, *k4)
+            torch.cuda.synchronize()
+            if not (same(torch, old_p, want_p) and same(torch, old_f, want_f)):
+                fail(f"the parent's greedy_scan ({tag}) differs from the plain version")
+            old_fn = lambda: parent_k4(torch, parent, *k4)  # noqa: E731
+        n_k, rk = k4[0].shape[1], k4[1].shape[1]
+        b_ms, b_by = bound(nbytes(*k4, got_p, got_f), p * n_k * (2 + 3 * rk))
         record({
-            "kernel": "greedy_scan", "case": tag, "p": p, "n": n, "r": rk,
-            "bitwise": ok,
+            "kernel": "greedy_scan", "case": tag, "p": p, "n": n_k, "r": rk,
+            "list_len": kw.get("_list_len", fused.GREEDY_LIST_LEN), "bitwise": ok,
             "max_abs_err": max(max_abs_err(got_p, want_p), max_abs_err(got_f, want_f)),
-            "kernel_ms": cuda_ms(torch, lambda: fused.greedy_scan(*k4)),
-            "plain_ms": cuda_ms(torch, lambda: fused.greedy_scan_plain(*k4)),
+            "fallbacks": fallbacks,
+            **kernel_times(torch, lambda: fused.greedy_scan(*k4, **kw), old_fn),
+            "plain_ms": cuda_ms(torch, lambda: fused.greedy_scan_plain(*k4), n=5, warmup=1),
             "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
             "placed": int((got_p >= 0).sum()),
         }, ok)
+        if tag == "(g) negative request" and fallbacks < p - neg_pod:
+            fail(f"greedy_scan's guard did not trip: {fallbacks} row scans, "
+                 f"fewer than the {p - neg_pod} pods from the negative request on")
     return results
 
 
@@ -437,12 +621,27 @@ def run_greedy(torch, port, snap, pods) -> dict:
         fail(f"greedy backlog launched {launches}, not {want}")
     n_nodes = snap.allocatable.shape[0]
     assigned = check_backlog(torch, "greedy schedule_windows", out, N_WINDOWS, n_nodes, 0.5)
+    # K4's row-scan fallbacks in each window, from one more run
+    real, per_window = fused.greedy_scan, []
+
+    def keeping_fallbacks(*args, **kw):
+        picks_free = real(*args, **kw)
+        per_window.append(fused.last_greedy_fallbacks)
+        return picks_free
+
+    fused.greedy_scan = keeping_fallbacks
+    try:
+        run_backlog()
+    finally:
+        fused.greedy_scan = real
+    torch.cuda.synchronize()
     backlog_runs = main_runs + more_runs
     backlog_ms = statistics.median(backlog_runs)
     n_pods = WINDOW * N_WINDOWS
     emit({"phase": "greedy_schedule_windows", "windows": N_WINDOWS, "window": WINDOW,
           "nodes": n_nodes, "backlog_ms": backlog_ms, "backlog_ms_runs": backlog_runs,
           "pods_per_s": n_pods / (backlog_ms / 1e3), "n_assigned": assigned,
+          "fallbacks_per_window": [int(t) for t in per_window],
           "launches": launches, "equal_to_plain": True})
     emit({"phase": "profile_greedy_schedule_windows",
           **device_profile(torch, run_backlog, backlog_ms)})
@@ -601,6 +800,10 @@ def run_card_vs_cpu(torch, port) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-tree", default=None,
+                    help="a checkout of commit 1420195: time its K3 and K4 beside this tree's")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError as e:
@@ -665,7 +868,13 @@ def main() -> None:
     window = type(pods)(*[f[:WINDOW] for f in pods])
     sel_snap = gen_cluster(10_000, seed=0, constraints=True, device=dev)
     sel_pods = gen_pods(WINDOW, seed=1, constraints=True, device=dev)
-    results = check_kernels(torch, port, snap, window, sel_snap, sel_pods)
+    parent = None
+    if args.parent_tree is not None:
+        t0 = time.perf_counter()
+        parent = load_parent(_build, args.parent_tree)
+        print(f"parent build: {args.parent_tree} in {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    results = check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent)
 
     # ---- 4. the auction slice through TorchEngine -----------------------
     launches = {"auction": run_slice(torch, port, snap, pods, window)}

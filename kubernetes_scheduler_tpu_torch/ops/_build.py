@@ -40,8 +40,9 @@ SIGNATURES = {
     "ks_row_stats": [_P] * 6 + [_I] * 2 + [_P],
     # sj, price, active, req, free, bid, has, p, n, r, stream
     "ks_auction_bid": [_P] * 7 + [_I] * 3 + [_P],
-    # sj, req, free0, free_after, picks, p, n, r, stream
-    "ks_greedy_scan": [_P] * 5 + [_I] * 3 + [_P],
+    # sj, req, free0, free_after, picks, list_val, list_col, list_cnt,
+    # fallbacks, p, n, r, list_len, stream
+    "ks_greedy_scan": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 
@@ -60,29 +61,31 @@ def nvcc_path() -> str:
     )
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfused_{key.hexdigest()[:16]}.so"
+def library_path(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> Path:
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return build_dir / f"libfused_{key.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """(library path, compiler log): compile csrc/fused.cu unless a library
-    of the same source and flags exists. The log (ptxas register and spill
-    counts) is empty when the library was reused."""
+def build(source: Path = SOURCE, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """(library path, compiler log): compile `source` (csrc/fused.cu unless
+    another tree's copy is named, as chip_smoke's before/after comparison
+    does) unless a library of the same source and flags exists. The log
+    (ptxas register and spill counts) is empty when the library was
+    reused."""
     with _BUILD_LOCK:
-        lib = library_path()
+        lib = library_path(source, build_dir)
         if lib.is_file():
             return lib, ""
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
         proc = subprocess.run(
             cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
         )
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
+                f"nvcc failed ({proc.returncode}) building {source}:\n"
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, lib)

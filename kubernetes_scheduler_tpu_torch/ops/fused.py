@@ -25,19 +25,29 @@ K3 `auction_bid` replaces `fused_auction_bid` (pallas_fused.py:581, body
 first column of the row maximum of sj - price over cells with
 sj > NEG/2 and capacity for every requested resource. Bound: the bytes
 of the active pods' sj rows, read once per round. Design: one block per
-pod row, streaming the row once with (value, column) pairs reduced
-first-max; inactive pods read nothing, and no [p, n, r] capacity
-broadcast or [p, n] bid row is materialized.
+pod row, four columns a thread (16-byte loads of sj and price where
+n % 4 == 0), (value, column) pairs reduced first-max; a node's capacity
+words are read only for a cell whose value beats the thread's running
+best, so most cells cost their two loads alone. Inactive pods read
+nothing, and no [p, n, r] capacity broadcast or [p, n] bid row is
+materialized.
 
 K4 `greedy_scan` replaces `fused_greedy_scan` (pallas_fused.py:476, body
 `_greedy_kernel` :421). The greedy assigner's sequential scan over pods
 in priority order: per pod, the first column of the row maximum over
 cells with sj > NEG/2 and capacity for every requested resource, then
 the pod's request subtracted from that column only, before the next pod
-reads the free capacity. Bound: the bytes of sj, read once. Design: one
-block walks the pods in order (the carry makes every pod depend on the
-previous one), with `free` in the free_after buffer in device memory;
-see csrc/fused.cu for why it sits far above its bound.
+reads the free capacity. Bound: the bytes of sj, read once. Design, two
+launches: every row's first qualifying cells under the capacity before
+the window (up to GREEDY_LIST_LEN), on all SMs; then one block walks the
+pods in order and takes the first listed cell that still fits. Requests are never
+negative on the main path, so capacity only falls and the cells a pod can
+take at its turn are a subset of those it could take before the window:
+the walk is exact. A pod whose full list is used up scans its row, over
+the cells ranked after its list only (the fallback); from the first
+request with a component below zero (or NaN) every pod scans its whole
+row. See csrc/fused.cu. `last_greedy_fallbacks` holds the int32 device
+scalar of the last launch's row scans (read it after a synchronise).
 
 Every wrapper takes its plain version for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises. `_plain=True` (used to hold
@@ -59,10 +69,16 @@ from kubernetes_scheduler_tpu_torch.ops.score import MAX_RAW_SCORE, alpha_beta
 # stages in shared memory
 MAX_FUSED_SELECTORS = 32
 MAX_RESOURCES = 32
+# K4's candidate list length per pod (csrc/fused.cu kListLen: the top 32
+# of each of a row block's eight warps, merged)
+GREEDY_LIST_LEN = 256
 
 # launches of each kernel since the last reset_launches(); only the
 # launch sites below add to these
 launches = {"masked_score": 0, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0}
+# [1] int32 on the card: pods of K4's last launch that took a row scan;
+# None after a plain run
+last_greedy_fallbacks: torch.Tensor | None = None
 
 
 def reset_launches() -> None:
@@ -357,19 +373,25 @@ def greedy_scan_plain(sj, req, free0):
     return picks, free
 
 
-def greedy_scan(sj, req, free0, *, _plain=False):
+def greedy_scan(sj, req, free0, *, _plain=False, _list_len=GREEDY_LIST_LEN):
     """K4: the greedy scan, (picks [p] int32, free_after [n, r] f32).
 
     sj [p, n] f32 masked scores in scan order (NEG where infeasible or the
     pod is masked); req [p, r] f32 requests in the same order; free0
     [n, r] f32 free capacity before the window. picks[i] is pod i's node,
-    -1 when no cell qualifies."""
+    -1 when no cell qualifies. `_list_len` (1 to GREEDY_LIST_LEN) shortens
+    the kernel's candidate lists so that checks can drive its fallback;
+    the result does not depend on it."""
+    global last_greedy_fallbacks
+    if not 1 <= _list_len <= GREEDY_LIST_LEN:
+        raise ValueError(f"greedy_scan: _list_len {_list_len} not in 1..{GREEDY_LIST_LEN}")
     if not _use_kernel(sj, _plain):
+        last_greedy_fallbacks = None
         return greedy_scan_plain(sj, req, free0)
     dev = sj.device
     p, n = sj.shape
     r = req.shape[1]
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
     for name, t, dtype, shape in (
         ("sj", sj, f32, (p, n)), ("req", req, f32, (p, r)),
         ("free0", free0, f32, (n, r)),
@@ -377,14 +399,20 @@ def greedy_scan(sj, req, free0, *, _plain=False):
         _check(name, t, dtype, shape, dev)
     if r > MAX_RESOURCES:
         raise ValueError(f"greedy_scan: {r} resources > {MAX_RESOURCES}")
-    picks = torch.empty(p, dtype=torch.int32, device=dev)
+    picks = torch.empty(p, dtype=i32, device=dev)
     free_after = torch.empty((n, r), dtype=f32, device=dev)
+    list_val = torch.empty((p, GREEDY_LIST_LEN), dtype=f32, device=dev)
+    list_col = torch.empty((p, GREEDY_LIST_LEN), dtype=i32, device=dev)
+    list_cnt = torch.empty(p, dtype=i32, device=dev)
+    fallbacks = torch.empty(1, dtype=i32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         rc = lib.ks_greedy_scan(
             _ptr(sj), _ptr(req), _ptr(free0), _ptr(free_after), _ptr(picks),
-            p, n, r, _stream(dev),
+            _ptr(list_val), _ptr(list_col), _ptr(list_cnt), _ptr(fallbacks),
+            p, n, r, _list_len, _stream(dev),
         )
     check_launch(lib, rc, "greedy_scan")
     launches["greedy_scan"] += 1
+    last_greedy_fallbacks = fallbacks
     return picks, free_after
