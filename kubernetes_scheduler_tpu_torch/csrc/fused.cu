@@ -17,12 +17,13 @@
 // Layout: row-major and unpadded, as the PyTorch caller holds the
 // tensors. Per-pod values are uniform across a block and staged in shared
 // memory; per-node values are read by consecutive threads from
-// consecutive addresses (K3 and K4 four columns a thread, one 16-byte load
-// where n % 4 == 0). The [k, p]/[k, n] transposes of the TPU kernels
+// consecutive addresses (K1, K3 and K4 four columns a thread, one 16-byte
+// load where n % 4 == 0). The [k, p]/[k, n] transposes of the TPU kernels
 // existed for its lanes and are not carried over, except for the selector
 // operands, whose [4S, p] / [3S, n] rows already give coalesced reads.
-// K3 and K4 read a node's capacity words only for a cell whose value could
-// change the first maximum they keep.
+// K1 and K2 read the node operands once per group of pods, not once per
+// cell; K3 and K4 read a node's capacity words only for a cell whose value
+// could change the first maximum they keep.
 //
 // Arithmetic uses explicit round-to-nearest intrinsics (__fmul_rn,
 // __fsub_rn, __fadd_rn, __fdiv_rn), so nvcc cannot contract a*b - c*d
@@ -48,129 +49,22 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGridY = 65535;
 constexpr unsigned kFull = 0xffffffffu;
 
-// 10 - 10 * |alpha * v - beta * u|  (ops/score.balanced_cpu_diskio)
-__device__ __forceinline__ float raw_score(float alpha, float beta, float u,
-                                           float v) {
-  const float load = fabsf(__fsub_rn(__fmul_rn(alpha, v), __fmul_rn(beta, u)));
+// 10 - 10 * load, the tail of the score: non-increasing in load, since
+// each correctly rounded step is monotone
+__device__ __forceinline__ float score_of_load(float load) {
   return __fsub_rn(kMaxRawScore, __fmul_rn(kMaxRawScore, load));
 }
 
-// K1: one thread per (pod, node) cell; blockIdx.y walks pods, blockIdx.x
-// node chunks. Output: the (optionally min-max normalized) score where the
-// cell is feasible, NEG elsewhere.
-__global__ void __launch_bounds__(kThreads) masked_score_kernel(
-    const float* __restrict__ alpha, const float* __restrict__ beta,
-    const unsigned char* __restrict__ pod_ok, const int* __restrict__ target,
-    const float* __restrict__ u, const float* __restrict__ v,
-    const unsigned char* __restrict__ node_mask,
-    const float* __restrict__ pod_req, const float* __restrict__ alloc,
-    const float* __restrict__ reqd, const float* __restrict__ aff_pod,
-    const float* __restrict__ aff_node, const float* __restrict__ other,
-    const float* __restrict__ stats, float* __restrict__ out, int p, int n,
-    int r, int n_sel) {
-  __shared__ float s_req[kMaxRes];
-  __shared__ float s_aff[4 * kMaxSel];
-  for (int i = blockIdx.y; i < p; i += gridDim.y) {
-    __syncthreads();  // the previous pod's shared rows are no longer read
-    for (int k = threadIdx.x; k < r; k += blockDim.x)
-      s_req[k] = pod_req[(size_t)i * r + k];
-    for (int k = threadIdx.x; k < 4 * n_sel; k += blockDim.x)
-      s_aff[k] = aff_pod[(size_t)k * p + i];
-    __syncthreads();
-    const float a = alpha[i];
-    const float b = beta[i];
-    const bool ok_i = pod_ok[i] != 0;
-    const int tgt = target[i];
-    float hi = 0.0f, lo = 0.0f;
-    if (stats != nullptr) {
-      hi = stats[i];
-      lo = stats[p + i];
-    }
-    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < n;
-         j += gridDim.x * blockDim.x) {
-      float s = raw_score(a, b, u[j], v[j]);
-      bool fit = ok_i && node_mask[j] != 0;
-      // NodeResourcesFit; an unrequested resource never excludes a node
-      for (int k = 0; k < r; ++k) {
-        const float q = s_req[k];
-        const size_t at = (size_t)j * r + k;
-        fit = fit && (__fadd_rn(reqd[at], q) <= alloc[at] || q == 0.0f);
-      }
-      // spec.nodeName pinning against the global node index
-      fit = fit && (tgt < 0 || tgt == j);
-      // count-based families per selector: required presence, anti
-      // absence, reverse avoiders, spread skew (count + 1 - dmin > maxSkew)
-      for (int sel = 0; sel < n_sel; ++sel) {
-        const bool req_sel = s_aff[sel] > 0.0f;
-        const bool anti = s_aff[n_sel + sel] > 0.0f;
-        const bool match = s_aff[2 * n_sel + sel] > 0.0f;
-        const float thresh = s_aff[3 * n_sel + sel];
-        const bool present = aff_node[(size_t)sel * n + j] > 0.0f;
-        const bool avoider = aff_node[(size_t)(n_sel + sel) * n + j] > 0.0f;
-        const float cplus = aff_node[(size_t)(2 * n_sel + sel) * n + j];
-        const bool bad = (req_sel && !present) || (anti && present) ||
-                         (match && avoider) || (cplus > thresh);
-        fit = fit && !bad;
-      }
-      if (other != nullptr) fit = (other[(size_t)i * n + j] > 0.0f) && fit;
-      if (stats != nullptr)
-        s = __fdiv_rn(__fmul_rn(__fsub_rn(s, lo), kMaxNodeScore),
-                      __fsub_rn(hi, lo));
-      out[(size_t)i * n + j] = fit ? s : kNeg;
-    }
-  }
+// |alpha * v - beta * u|, the load of ops/score.balanced_cpu_diskio
+__device__ __forceinline__ float load_of(float alpha, float beta, float u,
+                                         float v) {
+  return fabsf(__fsub_rn(__fmul_rn(alpha, v), __fmul_rn(beta, u)));
 }
 
-// K2: one block per pod row; each thread folds a strided slice of the
-// node-masked raw scores, then the block reduces (max, min). Both are
-// exact in any order.
-__global__ void __launch_bounds__(kThreads) row_stats_kernel(
-    const float* __restrict__ alpha, const float* __restrict__ beta,
-    const float* __restrict__ u, const float* __restrict__ v,
-    const unsigned char* __restrict__ node_mask, float* __restrict__ out,
-    int p, int n) {
-  __shared__ float s_hi[kWarps];
-  __shared__ float s_lo[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int i = blockIdx.x; i < p; i += gridDim.x) {
-    const float a = alpha[i];
-    const float b = beta[i];
-    float hi = -FLT_MAX, lo = FLT_MAX;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      if (node_mask[j] != 0) {
-        const float s = raw_score(a, b, u[j], v[j]);
-        hi = fmaxf(hi, s);
-        lo = fminf(lo, s);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      hi = fmaxf(hi, __shfl_down_sync(0xffffffffu, hi, off));
-      lo = fminf(lo, __shfl_down_sync(0xffffffffu, lo, off));
-    }
-    __syncthreads();  // the previous pod's partials are no longer read
-    if (lane == 0) {
-      s_hi[warp] = hi;
-      s_lo[warp] = lo;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int w = 1; w < kWarps; ++w) {
-        hi = fmaxf(hi, s_hi[w]);
-        lo = fminf(lo, s_lo[w]);
-      }
-      out[i] = hi;
-      out[p + i] = lo;
-    }
-  }
-}
-
-// (value, column) pair order of the auction's argmax: the greater value
-// wins, and among equal values the smaller column (jnp.argmax's first
-// maximum).
-__device__ __forceinline__ bool bid_better(float val, int col, float best,
-                                           int best_col) {
-  return val > best || (val == best && col < best_col);
+// 10 - 10 * |alpha * v - beta * u|  (ops/score.balanced_cpu_diskio)
+__device__ __forceinline__ float raw_score(float alpha, float beta, float u,
+                                           float v) {
+  return score_of_load(load_of(alpha, beta, u, v));
 }
 
 // The four row values at columns j..j+3, for j < n a multiple of 4, and
@@ -183,6 +77,466 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int j,
   return make_float4(__ldg(row + j), j + 1 < n ? __ldg(row + j + 1) : fill,
                      j + 2 < n ? __ldg(row + j + 2) : fill,
                      j + 3 < n ? __ldg(row + j + 3) : fill);
+}
+
+// load4 for a stream touched once (evict-first, `ld.global.cs`), 0 past
+// column n - 1
+template <bool kVec>
+__device__ __forceinline__ float4 load4_once(const float* row, int j, int n) {
+  if (kVec) return __ldcs(reinterpret_cast<const float4*>(row + j));
+  return make_float4(__ldcs(row + j), j + 1 < n ? __ldcs(row + j + 1) : 0.0f,
+                     j + 2 < n ? __ldcs(row + j + 2) : 0.0f,
+                     j + 3 < n ? __ldcs(row + j + 3) : 0.0f);
+}
+
+// The row values at columns j..j+3 that exist, as streaming stores
+// (`st.global.cs`): one 16-byte store under kVec
+template <bool kVec>
+__device__ __forceinline__ void store4_once(float* row, int j, int n,
+                                            float4 x) {
+  if (kVec) {
+    __stcs(reinterpret_cast<float4*>(row + j), x);
+    return;
+  }
+  __stcs(row + j, x.x);
+  if (j + 1 < n) __stcs(row + j + 1, x.y);
+  if (j + 2 < n) __stcs(row + j + 2, x.z);
+  if (j + 3 < n) __stcs(row + j + 3, x.w);
+}
+
+// max and min that return NaN when either operand is NaN (PTX max.NaN,
+// min.NaN, sm_80 on); fmaxf and fminf would drop the NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// K1: masked_score, replacing fused_masked_score (pallas_fused.py:252,
+// body _fused_kernel :87). Output: the (optionally min-max normalized)
+// score where the cell is feasible, NEG elsewhere.
+//
+// Bound on the H100: bytes, the [p, n] `other` read and the [p, n] output
+// write, each touched once (2 x 41 MB at 1,024 x 10,000). The per-node
+// operands (u, v, node_mask, r words of reqd and of alloc, 3S selector
+// words) are ~45 B a column at S = 1 and r = 3; read once per cell they
+// cost L2 ten times the HBM bytes. So a block is node-stationary:
+//
+// - it owns kScoreCols = 1,024 columns (four consecutive ones a thread)
+//   and walks a group of kScoreGroup pods, with kScoreBlocks blocks
+//   resident on an SM (registers capped to fit);
+// - each thread reads its columns' node operands once into registers
+//   (reqd and alloc too where r <= kRegRes; above, from L1 per pod), with
+//   the selector rows folded into per-column bitmasks: bit s of pres and
+//   avo is selector s's presence and avoider flag (S <= 32: one word);
+// - the group's pod scalars are staged in shared memory once, a PodRow
+//   a pod (alpha, beta, the epilogue's lo and hi - lo, target, pod_ok,
+//   and the selectors' required / anti / match flags as words of bits)
+//   plus its requests;
+// - a cell's feasibility is a predicate per column, so each test is one
+//   compare folded into it;
+// - per pod, a thread reads its four cells of `other` as one 16-byte
+//   streaming load (kPodUnroll rows in flight) and writes its four output
+//   cells as one 16-byte streaming store.
+//
+// The selector test on words is exact: some selector s has
+// (req_s & !pres_s) | (anti_s & pres_s) | (match_s & avo_s) exactly when
+// the word (req & ~pres) | (anti & pres) | (match & avo) is nonzero. The
+// spread term count + 1 - dmin > thresh stays a float compare per
+// selector, made only for the pod's selectors with thresh below the
+// largest count + 1 - dmin of the block's columns (NaN ignored): for any
+// other selector no column of the block can fail it (a NaN on either side
+// never fails), so skipping it is exact. Unconstrained selectors carry
+// thresh = F32_MAX and are skipped.
+//
+// A pod whose four cells are infeasible before `other` (pod masked, pinned
+// elsewhere, no node-masked column) does not read its `other` cells. The
+// arithmetic is raw_score's and the epilogue's, unchanged, so every cell
+// is bit-identical to the plain version.
+//
+// The pass is bound by instruction issue more than by bytes: the four
+// correctly rounded divisions of the epilogue and the feasibility tests
+// make up most of a pod's instructions. So the four scores come first
+// (a division's rare slow path is a call, and no predicate is live
+// across it), and the feasibility tests then run as straight-line
+// predicates. On the H100, 16 pods a group, 3 blocks an SM and 2 rows of
+// `other` in flight measured fastest of the shapes tried.
+constexpr int kScoreCols = 4 * kThreads;  // columns a K1 block owns
+constexpr int kScoreGroup = 16;           // pods a K1 block walks
+constexpr int kScoreBlocks = 3;           // K1 blocks resident on an SM
+constexpr int kRegRes = 4;                // resources K1 keeps in registers
+constexpr int kPodUnroll = 2;             // `other` rows in flight a thread
+
+// A pod's row of K1's shared table: three 16-byte shared loads a pod
+struct __align__(16) PodRow {
+  float a, b, lo, span;        // alpha, beta, the epilogue's lo and hi - lo
+  int tgt, ok, pad0, pad1;     // nodeName pin (-1 none), pod_ok
+  unsigned req, anti, match, spread;  // selector flags, bit s selector s
+};
+
+// kR: the resource count r when 1 <= r <= kRegRes (reqd and alloc held in
+// registers, loops unrolled), 0 for any r (read per pod from L1)
+template <bool kVec, int kR>
+__global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    const unsigned char* __restrict__ pod_ok, const int* __restrict__ target,
+    const float* __restrict__ u, const float* __restrict__ v,
+    const unsigned char* __restrict__ node_mask,
+    const float* __restrict__ pod_req, const float* __restrict__ alloc,
+    const float* __restrict__ reqd, const float* __restrict__ aff_pod,
+    const float* __restrict__ aff_node, const float* __restrict__ other,
+    const float* __restrict__ stats, float* __restrict__ out, int p, int n,
+    int r, int n_sel) {
+  constexpr int kRegs = kR > 0 ? kR : 1;
+  __shared__ PodRow s_pod[kScoreGroup];
+  __shared__ float s_q[kScoreGroup * kMaxRes];
+  __shared__ float s_thr[kScoreGroup * kMaxSel];
+  __shared__ float s_cmax[kWarps];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const float neg_inf = __int_as_float(0xff800000);
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int j = blockIdx.x * kScoreCols + 4 * t;  // the first of 4 columns
+  const bool live = j < n;
+
+  // this thread's columns' node operands, read once for every pod
+  float uu[4] = {0.0f, 0.0f, 0.0f, 0.0f}, vv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  unsigned nm = 0;  // bit c: column j + c exists and is node-masked in
+  unsigned pres[4] = {0u, 0u, 0u, 0u}, avo[4] = {0u, 0u, 0u, 0u};
+  float rq[4][kRegs], al[4][kRegs];
+  float cmax = neg_inf;
+  if (live) {
+    const float4 u4 = load4<kVec>(u, j, n, 0.0f);
+    const float4 v4 = load4<kVec>(v, j, n, 0.0f);
+    uu[0] = u4.x; uu[1] = u4.y; uu[2] = u4.z; uu[3] = u4.w;
+    vv[0] = v4.x; vv[1] = v4.y; vv[2] = v4.z; vv[3] = v4.w;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (j + c < n && node_mask[j + c] != 0) nm |= 1u << c;
+    for (int sel = 0; sel < n_sel; ++sel) {
+      const float4 pr = load4<kVec>(aff_node + (size_t)sel * n, j, n, 0.0f);
+      const float4 av =
+          load4<kVec>(aff_node + (size_t)(n_sel + sel) * n, j, n, 0.0f);
+      const float4 cp =
+          load4<kVec>(aff_node + (size_t)(2 * n_sel + sel) * n, j, n, neg_inf);
+      pres[0] |= (unsigned)(pr.x > 0.0f) << sel;
+      pres[1] |= (unsigned)(pr.y > 0.0f) << sel;
+      pres[2] |= (unsigned)(pr.z > 0.0f) << sel;
+      pres[3] |= (unsigned)(pr.w > 0.0f) << sel;
+      avo[0] |= (unsigned)(av.x > 0.0f) << sel;
+      avo[1] |= (unsigned)(av.y > 0.0f) << sel;
+      avo[2] |= (unsigned)(av.z > 0.0f) << sel;
+      avo[3] |= (unsigned)(av.w > 0.0f) << sel;
+      cmax = fmaxf(cmax, fmaxf(fmaxf(cp.x, cp.y), fmaxf(cp.z, cp.w)));
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k) {
+      const bool here = kR > 0 && live && j + c < n;
+      rq[c][k] = here ? reqd[(size_t)(j + c) * kR + k] : 0.0f;
+      al[c][k] = here ? alloc[(size_t)(j + c) * kR + k] : 0.0f;
+    }
+  }
+  // the block's largest count + 1 - dmin (NaN ignored)
+  for (int off = 16; off > 0; off >>= 1)
+    cmax = fmaxf(cmax, __shfl_xor_sync(kFull, cmax, off));
+  if (lane == 0) s_cmax[warp] = cmax;
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) cmax = fmaxf(cmax, s_cmax[w]);
+
+  const int groups = (p + kScoreGroup - 1) / kScoreGroup;
+  for (int gi = blockIdx.y; gi < groups; gi += gridDim.y) {
+    const int i0 = gi * kScoreGroup;
+    const int cnt = min(kScoreGroup, p - i0);
+    __syncthreads();  // the previous group's shared rows are no longer read
+    if (t < cnt) {
+      const int i = i0 + t;
+      PodRow row;
+      row.a = alpha[i];
+      row.b = beta[i];
+      row.lo = 0.0f;
+      row.span = 0.0f;
+      if (stats != nullptr) {
+        row.lo = stats[p + i];
+        row.span = __fsub_rn(stats[i], row.lo);
+      }
+      row.tgt = target[i];
+      row.ok = pod_ok[i];
+      row.pad0 = row.pad1 = 0;
+      row.req = row.anti = row.match = row.spread = 0u;
+      s_pod[t] = row;
+    }
+    for (int at = t; at < cnt * r; at += kThreads)
+      s_q[at] = pod_req[(size_t)i0 * r + at];
+    __syncthreads();  // the selector flags below complete s_pod's rows
+    // selector flags: warp w takes pods w, w + 8, ...; lane s selector s
+    for (int g = warp; n_sel > 0 && g < cnt; g += kWarps) {
+      const size_t i = i0 + g;
+      const bool on = lane < n_sel;
+      const float thr = on ? aff_pod[(size_t)(3 * n_sel + lane) * p + i] : 0.0f;
+      const unsigned req_b =
+          __ballot_sync(kFull, on && aff_pod[(size_t)lane * p + i] > 0.0f);
+      const unsigned anti_b = __ballot_sync(
+          kFull, on && aff_pod[(size_t)(n_sel + lane) * p + i] > 0.0f);
+      const unsigned match_b = __ballot_sync(
+          kFull, on && aff_pod[(size_t)(2 * n_sel + lane) * p + i] > 0.0f);
+      const unsigned spread_b = __ballot_sync(kFull, on && thr < cmax);
+      if (on) s_thr[g * kMaxSel + lane] = thr;
+      if (lane == 0) {
+        s_pod[g].req = req_b;
+        s_pod[g].anti = anti_b;
+        s_pod[g].match = match_b;
+        s_pod[g].spread = spread_b;
+      }
+    }
+    __syncthreads();
+    if (!live) continue;  // no barrier below
+    // kPodUnroll rows of `other` in flight while the previous ones are
+    // scored; a pod whose cells here are infeasible before `other` (pod
+    // masked, pinned elsewhere, no node-masked column) reads none, and
+    // without `other` every cell passes its test
+    const float4 none4 = other != nullptr ? zero4 : make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    float4 cur[kPodUnroll];
+#pragma unroll
+    for (int k = 0; k < kPodUnroll; ++k) {
+      const int tg = s_pod[k].tgt;
+      cur[k] = other != nullptr && k < cnt && nm != 0 && s_pod[k].ok != 0 &&
+                       (tg < 0 || (unsigned)(tg - j) < 4u)
+                   ? load4_once<kVec>(other + (size_t)(i0 + k) * n, j, n)
+                   : none4;
+    }
+    for (int g0 = 0; g0 < cnt; g0 += kPodUnroll) {
+      float4 nxt[kPodUnroll];
+#pragma unroll
+      for (int k = 0; k < kPodUnroll; ++k) {
+        const int g = g0 + kPodUnroll + k;
+        const int tg = g < cnt ? s_pod[g].tgt : 0;
+        nxt[k] = other != nullptr && g < cnt && nm != 0 && s_pod[g].ok != 0 &&
+                         (tg < 0 || (unsigned)(tg - j) < 4u)
+                     ? load4_once<kVec>(other + (size_t)(i0 + g) * n, j, n)
+                     : none4;
+      }
+#pragma unroll
+      for (int k = 0; k < kPodUnroll; ++k) {
+        const int g = g0 + k;
+        if (g >= cnt) break;
+        const PodRow pr = s_pod[g];
+        // the four scores first: the division's rare slow path is a call,
+        // and no feasibility predicate is live across it
+        float res[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          res[c] = raw_score(pr.a, pr.b, uu[c], vv[c]);
+          if (stats != nullptr)
+            res[c] = __fdiv_rn(__fmul_rn(__fsub_rn(res[c], pr.lo), kMaxNodeScore),
+                               pr.span);
+        }
+        // bit c: column j + c passes the pod and node masks, the nodeName
+        // pin and the selector families (words are 0 without selectors)
+        unsigned bits = pr.ok != 0 ? nm : 0u;
+        if (pr.tgt >= 0)
+          bits &= (unsigned)(pr.tgt - j) < 4u ? 1u << (pr.tgt - j) : 0u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if ((pr.req & ~pres[c]) | (pr.anti & pres[c]) | (pr.match & avo[c]))
+            bits &= ~(1u << c);
+        for (unsigned sp = pr.spread; sp != 0; sp &= sp - 1) {
+          const int sel = __ffs(sp) - 1;
+          const float thr = s_thr[g * kMaxSel + sel];
+          const float4 cp = load4<kVec>(
+              aff_node + (size_t)(2 * n_sel + sel) * n, j, n, 0.0f);
+          bits &= ~((unsigned)(cp.x > thr) | (unsigned)(cp.y > thr) << 1 |
+                    (unsigned)(cp.z > thr) << 2 | (unsigned)(cp.w > thr) << 3);
+        }
+        if (kR == 0) {  // any r: capacity words from L1, per column
+          for (int kk = 0; kk < r; ++kk) {
+            const float qk = s_q[g * r + kk];
+            for (int c = 0; c < 4; ++c) {
+              const size_t at = (size_t)(j + c) * r + kk;
+              if (((bits >> c) & 1u) && qk != 0.0f &&
+                  !(__fadd_rn(__ldg(reqd + at), qk) <= __ldg(alloc + at)))
+                bits &= ~(1u << c);
+            }
+          }
+        }
+        // the last tests as predicates, straight-line: `other`, and
+        // NodeResourcesFit (an unrequested resource never excludes a node)
+        const float oc[4] = {cur[k].x, cur[k].y, cur[k].z, cur[k].w};
+        bool f[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) f[c] = ((bits >> c) & 1u) & (oc[c] > 0.0f);
+#pragma unroll
+        for (int kk = 0; kk < (kR > 0 ? kR : 0); ++kk) {
+          const float qk = s_q[g * kRegs + kk];
+          const bool unreq = qk == 0.0f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            f[c] = f[c] & ((__fadd_rn(rq[c][kk], qk) <= al[c][kk]) | unreq);
+        }
+        store4_once<kVec>(out + (size_t)(i0 + g) * n, j, n,
+                          make_float4(f[0] ? res[0] : kNeg, f[1] ? res[1] : kNeg,
+                                      f[2] ? res[2] : kNeg, f[3] ? res[3] : kNeg));
+      }
+#pragma unroll
+      for (int k = 0; k < kPodUnroll; ++k) cur[k] = nxt[k];
+    }
+  }
+}
+
+// K2: row_stats, replacing fused_score_row_stats (pallas_fused.py:385,
+// body _row_stats_kernel :176): per pod, the max and min raw score over
+// node-masked nodes, -F32_MAX / F32_MAX for a pod with none, NaN for both
+// when any node-masked cell's score is NaN (the reference's max and min
+// propagate it; a NaN on a masked-out node changes nothing).
+//
+// Bound on the H100: operations, p x (node-masked nodes) cells from
+// O(p + n) input bytes. The score is 10 - 10 * load with load =
+// |alpha * v - beta * u|, and x -> 10 - 10 * x (each step rounded) is
+// non-increasing, so max score = score_of_load(min load) and min score =
+// score_of_load(max load), exactly: a cell costs two products, a
+// difference and a NaN-propagating min and max of |d|, and 10 - 10 * x
+// runs twice a row. No node-masked node leaves the max load at -inf
+// (every load is >= 0 or NaN).
+//
+// Design: a block takes kStatsPods pods, held in registers, and walks all
+// nodes, four consecutive ones a thread a step (16-byte loads of u and v
+// and a 4-byte load of node_mask where aligned), so u, v and node_mask are
+// read once per kStatsPods pods and each load serves kStatsPods cells. The
+// block then reduces each pod's (min, max) across its threads in the same
+// launch (a transposed warp reduction, then shared memory): no partials,
+// no second pass. Min and max are exact in any order. At 1,024 pods that
+// is 128 blocks, about one an SM. On the H100, one group a step measured
+// faster than several in flight or double-buffered, and 640 threads faster
+// than 384, 512, 768 or 1,024.
+constexpr int kStatsPods = 8;       // pods a K2 block takes
+constexpr int kStatsThreads = 640;  // threads a K2 block walks nodes with
+
+// node_mask at columns j..j+3 as bits, 0 past column n - 1: one 4-byte
+// load under kVec (n % 4 == 0, a 4-byte aligned base)
+template <bool kVec>
+__device__ __forceinline__ unsigned mask4(const unsigned char* __restrict__ m,
+                                          int j, int n) {
+  if (kVec) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(m + j));
+    return (unsigned)((w & 0xffu) != 0) | (unsigned)((w & 0xff00u) != 0) << 1 |
+           (unsigned)((w & 0xff0000u) != 0) << 2 |
+           (unsigned)((w & 0xff000000u) != 0) << 3;
+  }
+  unsigned bits = 0;
+  for (int c = 0; c < 4; ++c)
+    if (j + c < n && __ldg(m + j + c) != 0) bits |= 1u << c;
+  return bits;
+}
+
+// One step of K2's transposed warp reduction: each lane holds 2m values
+// and keeps the half picked by lane bit `off`, folded with the partner's
+// copy of it; the op is max for lanes with bit 16 set (the max loads),
+// min for the others.
+template <int kM>
+__device__ __forceinline__ void fold_half(const float (&in)[2 * kM],
+                                          float (&out)[kM], int lane,
+                                          int off) {
+  const bool upper = lane & off;
+  const bool is_max = lane & 16;
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    const float keep = upper ? in[kM + i] : in[i];
+    const float send = upper ? in[i] : in[kM + i];
+    const float got = __shfl_xor_sync(kFull, send, off);
+    out[i] = is_max ? max_nan(keep, got) : min_nan(keep, got);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kStatsThreads) row_stats_kernel(
+    const float* __restrict__ alpha, const float* __restrict__ beta,
+    const float* __restrict__ u, const float* __restrict__ v,
+    const unsigned char* __restrict__ node_mask, float* __restrict__ out,
+    int p, int n) {
+  constexpr int kStatsWarps = kStatsThreads / 32;
+  constexpr int kStep = 4 * kStatsThreads;  // columns a block reads a step
+  static_assert(kStatsPods == 8, "the transposed reduction folds 16 values");
+  __shared__ float s_ab[2 * kStatsPods];
+  __shared__ float s_red[kStatsWarps][2 * kStatsPods];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int i0 = blockIdx.x * kStatsPods;
+  if (t < 2 * kStatsPods) {
+    const int i = i0 + (t & (kStatsPods - 1));
+    s_ab[t] = i < p ? (t < kStatsPods ? alpha[i] : beta[i]) : 0.0f;
+  }
+  __syncthreads();
+  float a[kStatsPods], b[kStatsPods], lmin[kStatsPods], lmax[kStatsPods];
+#pragma unroll
+  for (int k = 0; k < kStatsPods; ++k) {
+    a[k] = s_ab[k];
+    b[k] = s_ab[kStatsPods + k];
+    lmin[k] = __int_as_float(0x7f800000);  // +inf
+    lmax[k] = __int_as_float(0xff800000);  // -inf
+  }
+  // thread t: the 4-node groups at columns 4t, 4t + kStep, ...
+  for (int j = 4 * t; j < n; j += kStep) {
+    const unsigned on = mask4<kVec>(node_mask, j, n);
+    const float4 u4 = load4<kVec>(u, j, n, 0.0f);
+    const float4 v4 = load4<kVec>(v, j, n, 0.0f);
+    const float us[4] = {u4.x, u4.y, u4.z, u4.w};
+    const float vs[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!((on >> c) & 1u)) continue;
+#pragma unroll
+      for (int k = 0; k < kStatsPods; ++k) {
+        const float d = load_of(a[k], b[k], us[c], vs[c]);
+        lmin[k] = min_nan(lmin[k], d);
+        lmax[k] = max_nan(lmax[k], d);
+      }
+    }
+  }
+  // the pods' (min, max) across the warp: 16 values folded by halves,
+  // 16 shuffles in all; lane l ends with value (l >> 1) & 15 in the order
+  // lmin[0..7], lmax[0..7]
+  float v16[16], v8[8], v4[4], v2[2], v1[1];
+#pragma unroll
+  for (int k = 0; k < kStatsPods; ++k) {
+    v16[k] = lmin[k];
+    v16[kStatsPods + k] = lmax[k];
+  }
+  fold_half<8>(v16, v8, lane, 16);
+  fold_half<4>(v8, v4, lane, 8);
+  fold_half<2>(v4, v2, lane, 4);
+  fold_half<1>(v2, v1, lane, 2);
+  const float got = __shfl_xor_sync(kFull, v1[0], 1);
+  const float mine = lane & 16 ? max_nan(v1[0], got) : min_nan(v1[0], got);
+  if ((lane & 1) == 0) s_red[warp][lane >> 1] = mine;
+  __syncthreads();
+  if (t < kStatsPods && i0 + t < p) {
+    float mn = s_red[0][t], mx = s_red[0][kStatsPods + t];
+    for (int w = 1; w < kStatsWarps; ++w) {
+      mn = min_nan(mn, s_red[w][t]);
+      mx = max_nan(mx, s_red[w][kStatsPods + t]);
+    }
+    const bool none = mx == __int_as_float(0xff800000);
+    out[i0 + t] = none ? -FLT_MAX : score_of_load(mn);
+    out[p + i0 + t] = none ? FLT_MAX : score_of_load(mx);
+  }
+}
+
+// (value, column) pair order of the auction's argmax: the greater value
+// wins, and among equal values the smaller column (jnp.argmax's first
+// maximum).
+__device__ __forceinline__ bool bid_better(float val, int col, float best,
+                                           int best_col) {
+  return val > best || (val == best && col < best_col);
 }
 
 // Capacity for every requested resource of one node (cap[col * r + k]);
@@ -701,9 +1055,23 @@ int ks_masked_score(const void* alpha, const void* beta, const void* pod_ok,
                     const void* stats, void* out, int p, int n, int r,
                     int n_sel, void* stream) {
   if (p > 0 && n > 0) {
-    const dim3 grid((n + kThreads - 1) / kThreads, grid_rows(p));
-    masked_score_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((n + kScoreCols - 1) / kScoreCols,
+                    grid_rows((p + kScoreGroup - 1) / kScoreGroup));
+    const bool vec = n % 4 == 0 && aligned16(u) && aligned16(v) &&
+                     aligned16(out) && aligned16(other) && aligned16(aff_node);
+    const int kr = r <= kRegRes ? r : 0;
+    auto* kernel =
+        vec ? (kr == 1 ? masked_score_kernel<true, 1>
+               : kr == 2 ? masked_score_kernel<true, 2>
+               : kr == 3 ? masked_score_kernel<true, 3>
+               : kr == 4 ? masked_score_kernel<true, 4>
+                         : masked_score_kernel<true, 0>)
+            : (kr == 1 ? masked_score_kernel<false, 1>
+               : kr == 2 ? masked_score_kernel<false, 2>
+               : kr == 3 ? masked_score_kernel<false, 3>
+               : kr == 4 ? masked_score_kernel<false, 4>
+                         : masked_score_kernel<false, 0>);
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(alpha), static_cast<const float*>(beta),
         static_cast<const unsigned char*>(pod_ok),
         static_cast<const int*>(target), static_cast<const float*>(u),
@@ -722,12 +1090,21 @@ int ks_row_stats(const void* alpha, const void* beta, const void* u,
                  const void* v, const void* node_mask, void* out, int p,
                  int n, void* stream) {
   if (p > 0) {
-    row_stats_kernel<<<grid_rows(p), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(alpha), static_cast<const float*>(beta),
-        static_cast<const float*>(u), static_cast<const float*>(v),
-        static_cast<const unsigned char*>(node_mask),
-        static_cast<float*>(out), p, n);
+    const int blocks = (p + kStatsPods - 1) / kStatsPods;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto* alpha_f = static_cast<const float*>(alpha);
+    const auto* beta_f = static_cast<const float*>(beta);
+    const auto* u_f = static_cast<const float*>(u);
+    const auto* v_f = static_cast<const float*>(v);
+    const auto* mask_b = static_cast<const unsigned char*>(node_mask);
+    if (n % 4 == 0 && aligned16(u) && aligned16(v) &&
+        reinterpret_cast<uintptr_t>(node_mask) % 4 == 0) {
+      row_stats_kernel<true><<<blocks, kStatsThreads, 0, s>>>(
+          alpha_f, beta_f, u_f, v_f, mask_b, static_cast<float*>(out), p, n);
+    } else {
+      row_stats_kernel<false><<<blocks, kStatsThreads, 0, s>>>(
+          alpha_f, beta_f, u_f, v_f, mask_b, static_cast<float*>(out), p, n);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

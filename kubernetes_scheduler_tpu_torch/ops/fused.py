@@ -7,18 +7,23 @@ body `_fused_kernel` :87). Per (pod, node) cell: the live policy score
 elsewhere, optionally min-max normalized. Feasible means the pod and
 node masks, resource fit, spec.nodeName pinning, up to 32 count-based
 selector families and the external `other` mask. Bound on the H100: the
-bytes of the [p, n] `other` read and the [p, n] output write (the
-per-pod and per-node vectors are small and stay in L2). Design: one
-thread per cell, so both [p, n] streams are read and written once,
-coalesced; the pod's row of scalars is staged in shared memory once per
-block.
+bytes of the [p, n] `other` read and the [p, n] output write. Design: a
+block owns 1,024 columns and walks a group of 16 pods, so each column's
+node operands (u, v, node mask, reqd and alloc, the selector rows folded
+into one word of bits each for presence and avoiders) are read once per
+group instead of once per cell; the group's pod scalars and selector
+flags are staged in shared memory; `other` and the output move as
+16-byte streaming loads and stores, each byte touched once.
 
 K2 `row_stats` replaces `fused_score_row_stats` (pallas_fused.py:385,
 body `_row_stats_kernel` :176). Per pod, the max and min raw score over
-node-masked nodes. Bound: arithmetic (p x n recomputed scores from
-O(p + n) input bytes); design: one block per pod row, the score is
-recomputed from the vectors and reduced in registers, so no [p, n]
-matrix is ever written.
+node-masked nodes, NaN where any of those scores is NaN. Bound:
+operations (p x n scores from O(p + n) input bytes). Since 10 - 10 * x
+is non-increasing, the max and min score are those of the min and max
+load |alpha * v - beta * u|, so a cell costs two products, a difference,
+a min and a max. Design: a block holds 8 pods in registers and walks
+every node, so each node's (u, v, mask) serves 8 cells, then reduces the
+pods' (min, max) across its threads in the same launch.
 
 K3 `auction_bid` replaces `fused_auction_bid` (pallas_fused.py:581, body
 `_bid_kernel` :528). One auction round's bid head: per active pod, the

@@ -136,10 +136,23 @@ def test_torch_megakernel_plain_matches_reference(p, n, r, normalizer, with_othe
     assert (got[:, ~prob["node_mask"]] == np.float32(NEG)).all()
 
 
-@pytest.mark.parametrize("p,n", [(37, 300), (257, 1025)])
-def test_torch_row_stats_plain_matches_reference(p, n):
+ROW_STATS_CASES = [(37, 300, None), (257, 1025, None), (37, 300, "valid"),
+                   (257, 1025, "masked")]
+
+
+@pytest.mark.parametrize(
+    "p,n,nan_at", ROW_STATS_CASES,
+    ids=["37-300", "257-1025", "37-300-nan-on-valid-nodes", "257-1025-nan-on-a-masked-node"],
+)
+def test_torch_row_stats_plain_matches_reference(p, n, nan_at):
+    """NaN in u on node-masked nodes makes every row's bounds NaN, in the
+    reference and the port alike; on a masked-out node it changes nothing."""
     prob = make_problem(p, n, 3, 1, seed=p + n)
     prob["node_mask"][n // 2:] = False
+    if nan_at == "valid":
+        prob["u"][[n // 9, n // 3]] = np.nan
+    elif nan_at == "masked":
+        prob["u"][n - 1] = np.nan
     t = {k: torch.from_numpy(np.array(v)) for k, v in prob.items()}
     alpha, beta = alpha_beta(t["r_cpu"], t["r_io"])
     target = np.full(p, -1.0, np.float32)
@@ -159,6 +172,16 @@ def test_torch_row_stats_plain_matches_reference(p, n):
     got = fused.fused_score_row_stats(alpha, beta, t["u"], t["v"], t["node_mask"])
     assert got.shape == (2, p)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=4 * ULP10)
+    assert np.isnan(got.numpy()).all() == (nan_at == "valid")
+    assert np.isnan(want).all() == (nan_at == "valid")
+    if nan_at != "valid":
+        assert not np.isnan(got.numpy()).any() and not np.isnan(want).any()
+    if nan_at == "masked":  # identical rows to the same problem without it
+        prob["u"][n - 1] = 0.5
+        clean = fused.fused_score_row_stats(
+            alpha, beta, torch.from_numpy(prob["u"]), t["v"], t["node_mask"])
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      clean.numpy().view(np.uint32))
 
 
 def bid_problem(p, n, r, seed):
