@@ -12,14 +12,15 @@ Phases; the first failure exits non-zero and no result line is printed:
    resources of the gpu-10kx10k config), bitwise (NaN where the plain
    version has NaN); K1 also at S=8 and S=32 selectors, n = 9,999
    (scalar loads), p = 1,000 (not a multiple of the pod group), every pod
-   pinned, without `other`, and on NaN bounds; K2 also at n = 9,999,
-   p = 1,000, with no node-masked node, with NaN in u on node-masked nodes
-   (every row NaN) and on a masked-out node (no change); K3 also on planted ties
-   and on a late round (~5% of pods active, nonzero prices, the capacity
-   left after a first round); K4 also on contended capacity, planted
-   ties, all-NEG rows with zero requests on oversubscribed resources and
-   r = 7, one-entry candidate lists, lists that run out at a tie
-   boundary, and a negative request that trips its exactness guard, each
+   pinned, without `other`, on NaN bounds, and at r = 4 (the fourth
+   resource unrequested: equal to r = 3) and r = 7; K2 also at
+   n = 9,999, p = 1,000, with no node-masked node, with NaN in u on
+   node-masked nodes (every row NaN) and on a masked-out node (no
+   change); K3 also on planted ties and on a late round (~5% of pods
+   active, nonzero prices, the capacity left after a first round); K4
+   also on contended capacity, planted ties, all-NEG rows with zero
+   requests on oversubscribed resources and r = 7, one-entry candidate
+   lists, lists that run out at a tie boundary, and a negative request that trips its exactness guard, each
    line with the pods that took K4's row-scan fallback; K3 and K4 also at
    an odd width (n % 4 != 0: scalar loads); kernel times are device time
    per launch behind a held stream, plain versions' times CUDA events
@@ -453,6 +454,23 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent=None) ->
     pins = torch.randint(0, n + 8, (p,), generator=gen).to(dev, torch.int32)
     k1_case("every pod pinned minmax=True", pos[:3] + (pins,) + pos[4:], kw, stats)
     k1_case("without other minmax=True", pos, dict(kw, other=None), stats)
+    # other resource counts: at r = 4 with the fourth resource requested
+    # by no pod the cells are those of r = 3; at r = 7 four more
+    # resources, each requested (1 or 2) by ~30% of the pods, with room
+    # for a request of 1 on half the nodes and of 2 on a quarter
+    base = fused.masked_score(*pos, **dict(kw, stats=stats))
+    gen_r = torch.Generator().manual_seed(4)
+    r4 = pos[:7] + tuple(torch.cat([t, x.to(dev)], 1).contiguous() for t, x in zip(pos[7:], (
+        torch.zeros(p, 1), torch.rand(n, 1, generator=gen_r),
+        2 * torch.rand(n, 1, generator=gen_r))))
+    if not same(torch, k1_case("r=4 unrequested minmax=True", r4, kw, stats), base):
+        fail("masked_score at r=4 with the fourth resource unrequested differs from r=3")
+    extra = torch.randint(1, 3, (p, 4), generator=gen_r).float()
+    extra *= torch.rand(p, 4, generator=gen_r) < 0.3
+    r7 = pos[:7] + tuple(torch.cat([t, x.to(dev)], 1).contiguous() for t, x in zip(pos[7:], (
+        extra, torch.full((n, 4), 4.0),
+        torch.randint(0, 4, (n, 4), generator=gen_r).float() + 1.5)))
+    k1_case("r=7 minmax=True", r7, kw, stats)
     # NaN in u on three node-masked nodes: every row's bounds are NaN, so
     # is every feasible cell
     valid = torch.nonzero(pos[6]).flatten()

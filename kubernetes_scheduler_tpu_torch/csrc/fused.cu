@@ -131,14 +131,18 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 // - it owns kScoreCols = 1,024 columns (four consecutive ones a thread)
 //   and walks a group of kScoreGroup pods, with kScoreBlocks blocks
 //   resident on an SM (registers capped to fit);
-// - each thread reads its columns' node operands once into registers
-//   (reqd and alloc too where r <= kRegRes; above, from L1 per pod), with
-//   the selector rows folded into per-column bitmasks: bit s of pres and
-//   avo is selector s's presence and avoider flag (S <= 32: one word);
+// - each thread reads its columns' node operands once into registers,
+//   with the selector rows folded into per-column bitmasks: bit s of pres
+//   and avo is selector s's presence and avoider flag (S <= 32: one word);
 // - the group's pod scalars are staged in shared memory once, a PodRow
 //   a pod (alpha, beta, the epilogue's lo and hi - lo, target, pod_ok,
 //   and the selectors' required / anti / match flags as words of bits)
 //   plus its requests;
+// - NodeResourcesFit runs once per group, resource by resource: a thread
+//   reads its four columns' reqd and alloc words of resource k and tests
+//   every pod of the group against them, into a 64-bit word of fit bits
+//   (bit 4g + c: pod g fits column j + c). Each word is read once per
+//   group whatever r is, and the pod walk takes four bits a pod;
 // - a cell's feasibility is a predicate per column, so each test is one
 //   compare folded into it;
 // - per pod, a thread reads its four cells of `other` as one 16-byte
@@ -170,7 +174,6 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 constexpr int kScoreCols = 4 * kThreads;  // columns a K1 block owns
 constexpr int kScoreGroup = 16;           // pods a K1 block walks
 constexpr int kScoreBlocks = 3;           // K1 blocks resident on an SM
-constexpr int kRegRes = 4;                // resources K1 keeps in registers
 constexpr int kPodUnroll = 2;             // `other` rows in flight a thread
 
 // A pod's row of K1's shared table: three 16-byte shared loads a pod
@@ -180,9 +183,7 @@ struct __align__(16) PodRow {
   unsigned req, anti, match, spread;  // selector flags, bit s selector s
 };
 
-// kR: the resource count r when 1 <= r <= kRegRes (reqd and alloc held in
-// registers, loops unrolled), 0 for any r (read per pod from L1)
-template <bool kVec, int kR>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
     const float* __restrict__ alpha, const float* __restrict__ beta,
     const unsigned char* __restrict__ pod_ok, const int* __restrict__ target,
@@ -193,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
     const float* __restrict__ aff_node, const float* __restrict__ other,
     const float* __restrict__ stats, float* __restrict__ out, int p, int n,
     int r, int n_sel) {
-  constexpr int kRegs = kR > 0 ? kR : 1;
+  static_assert(4 * kScoreGroup <= 64, "a pod group's fit bits fill one word");
   __shared__ PodRow s_pod[kScoreGroup];
   __shared__ float s_q[kScoreGroup * kMaxRes];
   __shared__ float s_thr[kScoreGroup * kMaxSel];
@@ -210,7 +211,6 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
   float uu[4] = {0.0f, 0.0f, 0.0f, 0.0f}, vv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   unsigned nm = 0;  // bit c: column j + c exists and is node-masked in
   unsigned pres[4] = {0u, 0u, 0u, 0u}, avo[4] = {0u, 0u, 0u, 0u};
-  float rq[4][kRegs], al[4][kRegs];
   float cmax = neg_inf;
   if (live) {
     const float4 u4 = load4<kVec>(u, j, n, 0.0f);
@@ -235,15 +235,6 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
       avo[2] |= (unsigned)(av.z > 0.0f) << sel;
       avo[3] |= (unsigned)(av.w > 0.0f) << sel;
       cmax = fmaxf(cmax, fmaxf(fmaxf(cp.x, cp.y), fmaxf(cp.z, cp.w)));
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-#pragma unroll
-    for (int k = 0; k < kRegs; ++k) {
-      const bool here = kR > 0 && live && j + c < n;
-      rq[c][k] = here ? reqd[(size_t)(j + c) * kR + k] : 0.0f;
-      al[c][k] = here ? alloc[(size_t)(j + c) * kR + k] : 0.0f;
     }
   }
   // the block's largest count + 1 - dmin (NaN ignored)
@@ -314,6 +305,29 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
                    ? load4_once<kVec>(other + (size_t)(i0 + k) * n, j, n)
                    : none4;
     }
+    // NodeResourcesFit for the group, while the first rows of `other`
+    // load: bit 4g + c is cleared where pod g requests resource k and
+    // reqd + request > alloc at column j + c (an unrequested resource
+    // never excludes a node; NaN never fits)
+    unsigned long long fit = ~0ull;
+    for (int k = 0; k < r; ++k) {
+      float rq[4], al[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool here = j + c < n;
+        rq[c] = here ? __ldg(reqd + (size_t)(j + c) * r + k) : 0.0f;
+        al[c] = here ? __ldg(alloc + (size_t)(j + c) * r + k) : 0.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < kScoreGroup; ++g) {
+        const float qk = s_q[g * r + k];
+        const unsigned ok = (unsigned)((__fadd_rn(rq[0], qk) <= al[0]) | (qk == 0.0f)) |
+                            (unsigned)((__fadd_rn(rq[1], qk) <= al[1]) | (qk == 0.0f)) << 1 |
+                            (unsigned)((__fadd_rn(rq[2], qk) <= al[2]) | (qk == 0.0f)) << 2 |
+                            (unsigned)((__fadd_rn(rq[3], qk) <= al[3]) | (qk == 0.0f)) << 3;
+        fit &= ~((unsigned long long)(~ok & 0xfu) << (4 * g));
+      }
+    }
     for (int g0 = 0; g0 < cnt; g0 += kPodUnroll) {
       float4 nxt[kPodUnroll];
 #pragma unroll
@@ -342,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
         }
         // bit c: column j + c passes the pod and node masks, the nodeName
         // pin and the selector families (words are 0 without selectors)
-        unsigned bits = pr.ok != 0 ? nm : 0u;
+        unsigned bits = pr.ok != 0 ? nm & (unsigned)(fit >> (4 * g)) & 0xfu : 0u;
         if (pr.tgt >= 0)
           bits &= (unsigned)(pr.tgt - j) < 4u ? 1u << (pr.tgt - j) : 0u;
 #pragma unroll
@@ -357,31 +371,11 @@ __global__ void __launch_bounds__(kThreads, kScoreBlocks) masked_score_kernel(
           bits &= ~((unsigned)(cp.x > thr) | (unsigned)(cp.y > thr) << 1 |
                     (unsigned)(cp.z > thr) << 2 | (unsigned)(cp.w > thr) << 3);
         }
-        if (kR == 0) {  // any r: capacity words from L1, per column
-          for (int kk = 0; kk < r; ++kk) {
-            const float qk = s_q[g * r + kk];
-            for (int c = 0; c < 4; ++c) {
-              const size_t at = (size_t)(j + c) * r + kk;
-              if (((bits >> c) & 1u) && qk != 0.0f &&
-                  !(__fadd_rn(__ldg(reqd + at), qk) <= __ldg(alloc + at)))
-                bits &= ~(1u << c);
-            }
-          }
-        }
-        // the last tests as predicates, straight-line: `other`, and
-        // NodeResourcesFit (an unrequested resource never excludes a node)
+        // the last test as a predicate, straight-line: `other`
         const float oc[4] = {cur[k].x, cur[k].y, cur[k].z, cur[k].w};
         bool f[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) f[c] = ((bits >> c) & 1u) & (oc[c] > 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < (kR > 0 ? kR : 0); ++kk) {
-          const float qk = s_q[g * kRegs + kk];
-          const bool unreq = qk == 0.0f;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            f[c] = f[c] & ((__fadd_rn(rq[c][kk], qk) <= al[c][kk]) | unreq);
-        }
         store4_once<kVec>(out + (size_t)(i0 + g) * n, j, n,
                           make_float4(f[0] ? res[0] : kNeg, f[1] ? res[1] : kNeg,
                                       f[2] ? res[2] : kNeg, f[3] ? res[3] : kNeg));
@@ -1059,18 +1053,7 @@ int ks_masked_score(const void* alpha, const void* beta, const void* pod_ok,
                     grid_rows((p + kScoreGroup - 1) / kScoreGroup));
     const bool vec = n % 4 == 0 && aligned16(u) && aligned16(v) &&
                      aligned16(out) && aligned16(other) && aligned16(aff_node);
-    const int kr = r <= kRegRes ? r : 0;
-    auto* kernel =
-        vec ? (kr == 1 ? masked_score_kernel<true, 1>
-               : kr == 2 ? masked_score_kernel<true, 2>
-               : kr == 3 ? masked_score_kernel<true, 3>
-               : kr == 4 ? masked_score_kernel<true, 4>
-                         : masked_score_kernel<true, 0>)
-            : (kr == 1 ? masked_score_kernel<false, 1>
-               : kr == 2 ? masked_score_kernel<false, 2>
-               : kr == 3 ? masked_score_kernel<false, 3>
-               : kr == 4 ? masked_score_kernel<false, 4>
-                         : masked_score_kernel<false, 0>);
+    auto* kernel = vec ? masked_score_kernel<true> : masked_score_kernel<false>;
     kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(alpha), static_cast<const float*>(beta),
         static_cast<const unsigned char*>(pod_ok),

@@ -11,8 +11,9 @@ bytes of the [p, n] `other` read and the [p, n] output write. Design: a
 block owns 1,024 columns and walks a group of 16 pods, so each column's
 node operands (u, v, node mask, reqd and alloc, the selector rows folded
 into one word of bits each for presence and avoiders) are read once per
-group instead of once per cell; the group's pod scalars and selector
-flags are staged in shared memory; `other` and the output move as
+group instead of once per cell; resource fit is tested once per group,
+one resource at a time, into a word of fit bits, at any r; the group's
+pod scalars and selector flags are staged in shared memory; `other` and the output move as
 16-byte streaming loads and stores, each byte touched once.
 
 K2 `row_stats` replaces `fused_score_row_stats` (pallas_fused.py:385,

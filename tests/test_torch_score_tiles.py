@@ -10,7 +10,9 @@ step in PyTorch:
   block folds the T partials; 10 - 10 * x is applied once to the folded
   min and max (the score is non-increasing in the load). A pod with no
   node-masked node gets (-F32_MAX, F32_MAX).
-- K1 (`tile_masked_score`): blocks of `cols` columns by `group` pods; the
+- K1 (`tile_masked_score`): blocks of `cols` columns by `group` pods;
+  NodeResourcesFit taken once per block, resource by resource, as the
+  kernel's word of fit bits (bit 4g + c: pod g fits column c); the
   selector rows folded into per-column and per-pod words of bits, the
   word test (req & ~pres) | (anti & pres) | (match & avo), and the spread
   compare made only for the pod's selectors whose threshold lies below
@@ -222,8 +224,10 @@ def tile_masked_score(alpha, beta, pod_ok, target, u, v, node_mask, pod_request,
             score = MAX_RAW_SCORE - MAX_RAW_SCORE * torch.abs(
                 alpha[gg, None] * v[None, cc] - beta[gg, None] * u[None, cc])
             fit = pod_ok[gg, None] & node_mask[None, cc]
-            q = pod_request[gg][:, None, :]
-            fit &= ((reqd[cc][None] + q <= alloc[cc][None]) | (q == 0)).all(-1)
+            # the block's fit bits, one resource at a time
+            for k in range(pod_request.shape[1]):
+                q = pod_request[gg, k][:, None]
+                fit &= (reqd[cc, k][None, :] + q <= alloc[cc, k][None, :]) | (q == 0)
             fit &= (target[gg, None] < 0) | (target[gg, None] == cc[None, :])
             if n_sel:
                 word = ((req_w[gg, None] & ~pres[None, cc]) | (anti_w[gg, None] & pres[None, cc])
@@ -243,10 +247,12 @@ def tile_masked_score(alpha, beta, pod_ok, target, u, v, node_mask, pod_request,
 
 
 def score_problem(p, n, n_sel, variant, seed):
-    """make_problem's K1 inputs (r = 3) with S selectors; "pinned": every
+    """make_problem's K1 inputs (r = 3, or r = k for variant "rk") with S
+    selectors; "pinned": every
     pod pinned, some out of range, every other one requesting nothing; "extremes": NaN and +-inf counts and
     thresholds, and thresholds at the block maxima."""
-    prob = make_problem(p, n, 3, max(n_sel, 1), seed=seed)
+    r = int(variant[1:]) if variant.startswith("r") else 3
+    prob = make_problem(p, n, r, max(n_sel, 1), seed=seed)
     rng = np.random.default_rng(seed + 1)
     if variant == "pinned":
         prob["target_node"] = rng.integers(0, n + 3, p).astype(np.int32)
@@ -279,6 +285,10 @@ TILE_CASES = [
     (70, 1100, 32, "extremes", 32, 1024),
     (45, 301, 8, "pinned", 32, 128),
     (45, 301, 1, "pinned", 3, 40),
+    # the fit bits are built one resource at a time, for any r
+    (37, 300, 1, "r1", 8, 64),
+    (37, 300, 1, "r4", 8, 64),
+    (70, 1100, 8, "r7", 16, 1024),
 ]
 
 
@@ -338,3 +348,23 @@ def test_torch_selector_words_equal_per_selector_test(n_sel):
     if n_sel:
         assert per_sel.any() and not per_sel.all()
         assert int(w["pres"].max()) < 1 << n_sel  # one word holds S <= 32 flags
+
+
+def test_torch_unrequested_resource_changes_no_cell():
+    """A resource that no pod requests excludes no node, whatever its
+    capacity: r = 3 plus such a fourth resource (over capacity on half the
+    nodes) gives r = 3's cells, bit for bit. chip_smoke.py times K1 on
+    this case beside r = 3."""
+    _, pos, kw = score_problem(70, 1100, 8, "base", seed=5)
+    kw["stats"] = fused.fused_score_row_stats(pos[0], pos[1], pos[4], pos[5], pos[6])
+    rng = np.random.default_rng(6)
+    n = pos[4].shape[0]
+    alloc4 = rng.uniform(1, 10, (n, 1)).astype(np.float32)
+    reqd4 = (alloc4 * rng.uniform(0, 2, (n, 1))).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    pos4 = pos[:7] + (torch.cat([pos[7], torch.zeros(pos[7].shape[0], 1)], 1),
+                      torch.cat([pos[8], t(alloc4)], 1), torch.cat([pos[9], t(reqd4)], 1))
+    assert (pos4[9][:, 3] > pos4[8][:, 3]).any()
+    base = fused.masked_score_plain(*pos, **kw)
+    assert_same(fused.masked_score_plain(*pos4, **kw), base)
+    assert_same(tile_masked_score(*pos4, **kw, group=16, cols=1024), base)
