@@ -42,8 +42,32 @@ Phases; the first failure exits non-zero and no result line is printed:
    which must see no host read;
 7. small clusters scheduled on the card must equal the port's CPU path
    (which the tests hold against the JAX reference), for the auction,
-   greedy, and both assigners with affinity;
-8. the kernels line, then the result line.
+   greedy, and both assigners with affinity; then one window with each
+   option of the scoring surface (every policy x normalizer on both
+   assigners, score_plugins, soft on both paths, 40 selectors): masks
+   equal, scores within score_tolerance (the CPU tests' bound), decisions
+   equal or a near-tie greedy flip;
+8. the weighted multi-scorer backlog (the reference bench's production
+   score, 10,000 nodes with images, 8 x 1,024 pods, score_plugins, the
+   composed path): the bench's own call (auction, affinity_aware=True),
+   then affinity_aware=False on the auction (K3 every round) and greedy
+   (K4 once a window), each equal to its plain run and placing at least
+   half the backlog; the first under torch.profiler;
+9. every policy with min-max on the auction, and softmax and no
+   normalizer on balanced_cpu_diskio and least_allocated on both
+   assigners, one gpu-10kx10k window each (affinity_aware=False), each
+   equal to its plain run, scores and masks included;
+10. soft=True on constraints-5kx5k with soft_terms(seed 0) (kernel path,
+   affinity_aware=True, both assigners), each equal to its plain run,
+   with no hard-constraint break and some pods placed elsewhere than with
+   soft=False; the soft term's device time on one window;
+11. 40 selectors (above the kernel's 32) on 5,000 nodes, both assigners,
+   affinity_aware False and True, each equal to its plain run, no
+   hard-constraint break with affinity_aware=True;
+12. the kernels line, then the result line.
+
+Phases 7-11 print their seconds. Timed runs are medians of 3; equality
+runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, and nothing of JAX.
 
@@ -68,6 +92,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 # The data sheet's 67 TFLOP/s of float32 counts an FMA as two operations;
 # the kernels round every product and sum on its own (no contraction, to
@@ -78,6 +104,10 @@ WINDOW = 1024
 N_WINDOWS = 8
 TIMED_LAUNCHES = 25
 SLEEP_CYCLES_PER_S = 2.0e9   # torch.cuda._sleep's unit: SM clock cycles
+# float32 ulps by which two evaluations of one short score expression may
+# differ (score_tolerance); the CPU tests hold the port to the reference
+# with the same bound
+SCORE_ULPS = 8
 SLICE_KW = dict(
     assigner="auction", normalizer="min_max", fused=True, affinity_aware=False
 )
@@ -87,6 +117,20 @@ AFFINITY_KW = {
     "auction": dict(SLICE_KW, affinity_aware=True),
 }
 AFFINITY_WINDOWS = 5   # constraints-5kx5k: 5,000 pods padded to 5 x 1,024
+# the reference bench's production score (bench.py's weighted
+# multi-scorer row): yoda at weight 2 beside the k8s 1.22 default scorers
+MULTI_SCORER = (
+    ("balanced_cpu_diskio", 2.0), ("least_allocated", 1.0),
+    ("balanced_allocation", 1.0), ("image_locality", 1.0),
+)
+MULTI_KW = {
+    "auction_affinity": dict(assigner="auction", fused=False, affinity_aware=True,
+                             score_plugins=MULTI_SCORER),
+    "auction": dict(assigner="auction", fused=False, affinity_aware=False,
+                    score_plugins=MULTI_SCORER),
+    "greedy": dict(assigner="greedy", fused=False, affinity_aware=False,
+                   score_plugins=MULTI_SCORER),
+}
 REPLACES = {
     "masked_score": "kubernetes_scheduler_tpu/ops/pallas_fused.py:252",
     "row_stats": "kubernetes_scheduler_tpu/ops/pallas_fused.py:385",
@@ -112,6 +156,145 @@ MAIN_PATH = {
     "masked_score": "auction", "row_stats": "auction", "auction_bid": "auction",
     "greedy_scan": "greedy",
 }
+
+
+def soft_terms(snapshot, pods, seed: int):
+    """(snapshot, pods) of the port with seeded soft terms, integer weights
+    1-100, on the tensors' device: a PreferNoSchedule taint on ~10% of the
+    nodes (a third taint column, keys 0-3 and values 0-1 like the
+    generator's hard taints); 1-2 preferred node-affinity terms on ~30% of
+    the pods (up to three expressions, keys 0-7 and values 0-3 like the
+    generator's labels, mostly In, some terms an AND of two expressions);
+    preferred pod affinity on ~20% and preferred anti-affinity on ~10%
+    over the snapshot's selectors; one soft spread constraint on ~15%; a
+    weight on ~3% of the pref_attract and of the pref_avoid cells."""
+    from kubernetes_scheduler_tpu_torch.engine import POD_DTYPES, SNAPSHOT_DTYPES, as_leaf
+    from kubernetes_scheduler_tpu_torch.ops.constraints import PREFER_NO_SCHEDULE
+
+    rng = np.random.default_rng(seed)
+    n, p = snapshot.allocatable.shape[0], pods.request.shape[0]
+    s = snapshot.domain_counts.shape[1]
+    dev = snapshot.allocatable.device
+    weight = lambda *shape: rng.integers(1, 101, shape)  # noqa: E731
+
+    def sel(share):
+        return np.where(rng.random((p, 1)) < share, rng.integers(0, s, (p, 1)), -1)
+
+    taint = np.stack([rng.integers(0, 4, n), rng.integers(0, 2, n),
+                      np.full(n, PREFER_NO_SCHEDULE)], -1)[:, None, :]
+    snap = dict(
+        taints=np.concatenate([snapshot.taints.cpu().numpy(), taint], 1),
+        taint_mask=np.concatenate([snapshot.taint_mask.cpu().numpy(),
+                                   rng.random((n, 1)) < 0.1], 1),
+        pref_attract=np.where(rng.random((n, s)) < 0.03, weight(n, s), 0),
+        pref_avoid=np.where(rng.random((n, s)) < 0.03, weight(n, s), 0),
+    )
+    # expression 0 opens term 0; expression 1 joins it or opens term 1;
+    # expression 2 joins expression 1's term
+    has = rng.random(p) < 0.3
+    second_term = rng.random(p) < 0.5
+    mask = np.stack([has, has & (rng.random(p) < 0.6), has & (rng.random(p) < 0.3)], 1)
+    term = np.stack([np.zeros(p, int), second_term.astype(int), second_term.astype(int)], 1)
+    term_w = weight(p, 2)
+    pod = dict(
+        pna_key=rng.integers(0, 8, (p, 3)),
+        pna_op=rng.choice([0, 0, 0, 1, 2, 3], (p, 3)),
+        pna_vals=rng.integers(0, 4, (p, 3, 2)),
+        pna_val_mask=np.ones((p, 3, 2), bool),
+        pna_mask=mask, pna_term=term,
+        pna_weight=np.take_along_axis(term_w, term, 1),
+        pref_affinity_sel=sel(0.2), pref_affinity_weight=weight(p, 1),
+        pref_anti_sel=sel(0.1), pref_anti_weight=weight(p, 1),
+        soft_spread_sel=sel(0.15),
+    )
+    return (
+        snapshot._replace(**{k: as_leaf(v, SNAPSHOT_DTYPES[k], dev) for k, v in snap.items()}),
+        pods._replace(**{k: as_leaf(v, POD_DTYPES[k], dev) for k, v in pod.items()}),
+    )
+
+
+def _np(t) -> np.ndarray:
+    """A tensor or array as a float64 numpy array on the host."""
+    return np.asarray(t.cpu().numpy() if hasattr(t, "cpu") else t, dtype=np.float64)
+
+
+def _ulp(x) -> float:
+    """One float32 ulp at the largest |x|."""
+    return float(np.spacing(np.float32(np.abs(_np(x)).max())))
+
+
+def raw_score_tolerance(snap, pods, policy: str):
+    """Bound on |a - b| between two float32 evaluations of
+    engine.compute_scores(policy) that may round each operation
+    differently (FMA contraction, another summation order, another exp):
+    SCORE_ULPS ulp of the scores' scale over valid nodes. balanced_diskio
+    rescales its statistic Mj inside the policy, so there an error of
+    that size in Mj and in its row bounds becomes at most
+    4 * SCORE_ULPS ulp(Mj) * 100 / (M_max - M_min), plus SCORE_ULPS ulp
+    of 100. A float, or [p, 1] per row."""
+    from kubernetes_scheduler_tpu_torch.engine import compute_scores
+    from kubernetes_scheduler_tpu_torch.ops import score, stats
+
+    valid = snap.node_mask.cpu().numpy()
+    if policy == "balanced_diskio":
+        st = stats.utilization_stats(snap.disk_io, snap.cpu_pct, snap.node_mask)
+        m = score.balanced_diskio_m(st, snap.disk_io, pods.r_io)
+        hi, lo = (_np(b) for b in score.balanced_diskio_local_bounds(m, snap.node_mask))
+        span = np.where(hi != lo, hi - lo, 1.0)
+        return (4 * SCORE_ULPS * _ulp(_np(m)[:, valid]) * 100.0 / span
+                + SCORE_ULPS * _ulp(100.0))
+    return SCORE_ULPS * _ulp(_np(compute_scores(snap, pods, policy))[:, valid])
+
+
+def normalized_tolerance(normalizer: str, raw_tol, raw, norm, node_mask):
+    """The bound after `normalizer` on raw scores within raw_tol: min-max
+    turns an error d in the values and in the row bounds into at most
+    4 d * 100 / (highest - lowest), plus SCORE_ULPS ulp of 100; softmax
+    adds a relative exp(2 d) - 1 to its own 1e-6 (exp and the sum differ
+    in the last bits), plus twice the smallest normal float32 (values
+    below it are 0)."""
+    if normalizer == "none":
+        return raw_tol
+    if normalizer == "min_max":
+        r, valid = _np(raw), _np(node_mask).astype(bool)
+        hi = np.maximum(np.where(valid, r, -np.inf).max(1, keepdims=True), 0.0)
+        lo = np.where(valid, r, np.inf).min(1, keepdims=True)
+        lo = np.where(hi == lo, lo - 1.0, lo)
+        return 4 * raw_tol * 100.0 / (hi - lo) + SCORE_ULPS * _ulp(100.0)
+    tiny = float(np.finfo(np.float32).tiny)
+    return np.abs(_np(norm)) * (np.expm1(2 * raw_tol) + 1e-6) + 2 * tiny
+
+
+def score_tolerance(snap, pods, scores, feasible, kw: dict) -> np.ndarray:
+    """[p, n] bound on |a - b| between two evaluations of
+    schedule_batch(snap, pods, **kw).scores, `scores` and `feasible` being
+    one's, on the feasible cells: the policy's raw_score_tolerance
+    (balanced_cpu_diskio on the kernel path) through its normalizer; under
+    score_plugins each plugin's (min-max normalized outside
+    PRESCALED_PLUGINS) times |weight|, summed, plus SCORE_ULPS ulp of the
+    total; with soft=True plus SCORE_ULPS ulp of the scores for adding
+    the soft term, itself exact (sums of integers)."""
+    from kubernetes_scheduler_tpu_torch.engine import PRESCALED_PLUGINS, compute_scores
+
+    feas = _np(feasible).astype(bool)
+    scale = _ulp(_np(scores)[feas]) if feas.any() else 0.0
+    if kw.get("score_plugins"):
+        tol = SCORE_ULPS * scale
+        for name, weight in kw["score_plugins"]:
+            t = raw_score_tolerance(snap, pods, name)
+            if name not in PRESCALED_PLUGINS:
+                t = normalized_tolerance("min_max", t, compute_scores(snap, pods, name),
+                                         None, snap.node_mask)
+            tol = tol + abs(weight) * t
+    else:
+        policy = ("balanced_cpu_diskio" if kw.get("fused")
+                  else kw.get("policy", "balanced_cpu_diskio"))
+        tol = normalized_tolerance(
+            kw.get("normalizer", "min_max"), raw_score_tolerance(snap, pods, policy),
+            compute_scores(snap, pods, policy), scores, snap.node_mask)
+    if kw.get("soft"):
+        tol = tol + SCORE_ULPS * scale
+    return np.broadcast_to(tol, feas.shape)
 
 
 def fail(msg: str) -> None:
@@ -928,9 +1111,69 @@ def check_greedy_host_reads(torch, port, dev) -> None:
               "n_assigned": int(out.n_assigned), "host_syncs_detected": 0})
 
 
+def decisions_match(torch, port, got, want, pods, assigner: str) -> str:
+    """'equal' when node_idx, free_after and n_assigned are equal; for
+    greedy, which has no tie jitter, 'near-tie' when the decisions first
+    differ (in priority order) at a pod whose two picks score within 2 d
+    of each other under `want`'s scores, d being the largest |got - want|
+    score difference on that pod's feasible cells; '' otherwise."""
+    g, w = got.node_idx.cpu(), want.node_idx.cpu()
+    if torch.equal(g, w):
+        ok = (same(torch, got.free_after.cpu(), want.free_after.cpu())
+              and int(got.n_assigned) == int(want.n_assigned))
+        return "equal" if ok else ""
+    if assigner != "greedy":
+        return ""
+    order = port["assign"]._priority_order(pods.priority.cpu(), pods.pod_mask.cpu())
+    first = next(int(i) for i in order if g[i] != w[i])
+    gi, wi = int(g[first]), int(w[first])
+    if gi < 0 or wi < 0:
+        return ""
+    feas = want.feasible[first].cpu()
+    w_row, g_row = want.scores[first].cpu().double(), got.scores[first].cpu().double()
+    d = float((g_row - w_row).abs()[feas].max())
+    return "near-tie" if float(w_row[gi]) >= float(w_row[wi]) - 2 * d else ""
+
+
+def option_cases(port) -> list:
+    """Phase 7's new options: (family, case, snapshot, pods, kwargs) on
+    small CPU clusters: every policy x normalizer on both assigners
+    (composed path), score_plugins, soft on both paths, and S = 40."""
+    gen_cluster, gen_pods = port["gen_cluster"], port["gen_pods"]
+    feats = dict(gpu=True, constraints=True, images=True)
+    snap = gen_cluster(300, seed=3, device="cpu", **feats)
+    pods = gen_pods(96, seed=4, device="cpu", **feats)
+    soft_snap, soft_pods = soft_terms(snap, pods, seed=7)
+    wide = dict(constraints=True, n_selectors=40)
+    wide_snap = gen_cluster(200, seed=3, device="cpu", **wide)
+    wide_pods = gen_pods(96, seed=4, device="cpu", **wide)
+    cases = []
+    for policy in port["POLICIES"]:
+        for normalizer in port["NORMALIZERS"]:
+            for assigner in ("greedy", "auction"):
+                cases.append(("policies", f"{policy} {normalizer} {assigner}", snap, pods,
+                              dict(policy=policy, normalizer=normalizer, assigner=assigner,
+                                   fused=False, affinity_aware=False)))
+    for assigner, aa in (("auction", True), ("auction", False), ("greedy", False)):
+        cases.append(("score_plugins", f"{assigner} affinity_aware={aa}", snap, pods,
+                      dict(MULTI_KW["auction"], assigner=assigner, affinity_aware=aa)))
+    for fused, aa in ((True, True), (False, False)):
+        for assigner in ("greedy", "auction"):
+            cases.append(("soft", f"fused={fused} {assigner}", soft_snap, soft_pods,
+                          dict(assigner=assigner, normalizer="min_max", fused=fused,
+                               affinity_aware=aa, soft=True)))
+    for aa in (True, False):
+        for assigner in ("greedy", "auction"):
+            cases.append(("S=40", f"{assigner} affinity_aware={aa}", wide_snap, wide_pods,
+                          dict(SLICE_KW, assigner=assigner, affinity_aware=aa)))
+    return cases
+
+
 def run_card_vs_cpu(torch, port) -> None:
-    """Phase 7: the new options on a small constraints cluster, the card's
-    path against the port's CPU path."""
+    """Phase 7: small clusters, the card's path against the port's CPU
+    path: backlogs with the second slice's options, then one window with
+    each new option: masks equal, scores within score_tolerance,
+    decisions equal or a near-tie greedy flip."""
     small = port["gen_cluster"](300, seed=3, constraints=True, device="cpu")
     small_w = port["stack_windows"](
         port["gen_pods"](96, seed=4, constraints=True, device="cpu"), 32)
@@ -942,6 +1185,216 @@ def run_card_vs_cpu(torch, port) -> None:
                     type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
         emit({"phase": f"card_vs_cpu_{name}", "nodes": 300, "pods": 96,
               "n_assigned": int(gpu_out.n_assigned), "equal": True})
+    cpu_engine, card_engine = port["TorchEngine"](device="cpu"), port["TorchEngine"]()
+    families: dict = {}
+    for family, case, snap, pods, kw in option_cases(port):
+        cpu = cpu_engine.schedule_batch(snap, pods, **kw)
+        card = card_engine.schedule_batch(snap, pods, **kw)
+        card = type(card)(*[f.cpu() for f in card])
+        if not torch.equal(card.feasible, cpu.feasible):
+            fail(f"card vs CPU path, {family} {case}: the masks differ")
+        tol = score_tolerance(snap, pods, cpu.scores, cpu.feasible, kw)
+        feas = cpu.feasible.numpy()
+        err = np.abs(_np(card.scores) - _np(cpu.scores))[feas]
+        if not (err <= tol[feas]).all():
+            fail(f"card vs CPU path, {family} {case}: scores differ by {err.max()}")
+        verdict = decisions_match(torch, port, card, cpu, pods, kw["assigner"])
+        if not verdict:
+            fail(f"card vs CPU path, {family} {case}: the decisions differ")
+        families.setdefault(family, []).append(
+            [case, verdict, float(err.max()) if err.size else 0.0,
+             float((err / np.maximum(tol[feas], 1e-300)).max()) if err.size else 0.0])
+    for family, rows in families.items():
+        emit({"phase": f"card_vs_cpu_{family}", "cases": len(rows),
+              "equal": sum(r[1] == "equal" for r in rows),
+              "near_tie": sum(r[1] == "near-tie" for r in rows),
+              "largest_err_over_tolerance": max(r[3] for r in rows),
+              "rows": [[r[0], r[1], r[2]] for r in rows]})
+
+
+def timed_backlog(torch, port, run, n_timed: int = 3):
+    """(wall ms of n_timed runs, launches of the first, its result): the
+    launch counts are reset just before the first run and read just
+    after it."""
+    torch.cuda.synchronize()
+    port["fused"].reset_launches()
+    runs, out = wall_ms(torch, run, n=1)
+    launches = dict(port["fused"].launches)
+    if n_timed > 1:
+        more, _ = wall_ms(torch, run, n=n_timed - 1)
+        runs += more
+    return runs, launches, out
+
+
+def expect_launches(name: str, launches: dict, want: dict) -> None:
+    """Fail unless every kernel in `want` launched exactly so often (None:
+    at least once)."""
+    for kernel, n in want.items():
+        got = launches[kernel]
+        if (n is None and got <= 0) or (n is not None and got != n):
+            fail(f"{name} launched {launches}, expected {want} (None: at least once)")
+
+
+def run_multi_scorer(torch, port, dev) -> dict:
+    """Phase 8: the weighted multi-scorer backlog (the reference bench's
+    production score: gen_cluster(10_000, images=True), the first 8 x
+    1,024 of gen_pods(16_384, images=True)), the bench's own call (the
+    auction, affinity_aware=True) and affinity_aware=False on both
+    assigners (K3 every round, K4 once a window); each equal to its plain
+    run. Returns the affinity_aware=False runs' launch counts."""
+    engine = port["TorchEngine"]()
+    snap = port["gen_cluster"](10_000, seed=0, images=True, device=dev)
+    pods = port["gen_pods"](16_384, seed=1, images=True, device=dev)
+    backlog = type(pods)(*[f[: WINDOW * N_WINDOWS] for f in pods])
+    pods_w = port["stack_windows"](backlog, WINDOW)
+    n_nodes, n_pods = snap.allocatable.shape[0], WINDOW * N_WINDOWS
+    none = {"masked_score": 0, "row_stats": 0}
+    expected = {
+        "auction_affinity": dict(none, auction_bid=0, greedy_scan=0),
+        "auction": dict(none, auction_bid=None, greedy_scan=0),
+        "greedy": dict(none, auction_bid=0, greedy_scan=N_WINDOWS),
+    }
+    out_launches = {}
+    for name, kw in MULTI_KW.items():
+        run = lambda: engine.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+        runs, launches, out = timed_backlog(torch, port, run)
+        plain, rounds = count_rounds(
+            port, lambda: engine.schedule_windows(snap, pods_w, **kw, _plain=True))
+        check_equal(torch, f"multi-scorer {name} backlog (vs the plain path)", out, plain)
+        expect_launches(f"multi-scorer {name} backlog", launches, expected[name])
+        assigned = check_backlog(torch, f"multi-scorer {name} backlog", out, N_WINDOWS,
+                                 n_nodes, 0.5)
+        backlog_ms = statistics.median(runs)
+        emit({"phase": f"multi_scorer_{name}_schedule_windows",
+              "plugins": kw["score_plugins"], "affinity_aware": kw["affinity_aware"],
+              "windows": N_WINDOWS, "window": WINDOW, "nodes": n_nodes,
+              "backlog_ms": backlog_ms, "backlog_ms_runs": runs,
+              "pods_per_s": n_pods / (backlog_ms / 1e3), "n_assigned": assigned,
+              "auction_rounds_per_window": (rounds / N_WINDOWS
+                                            if kw["assigner"] == "auction" else None),
+              "launches": launches, "equal_to_plain": True})
+        if name == "auction_affinity":
+            emit({"phase": "profile_multi_scorer_auction_affinity_schedule_windows",
+                  **device_profile(torch, run, backlog_ms)})
+        out_launches[name] = launches
+    return out_launches
+
+
+def run_policies(torch, port, snap, window) -> None:
+    """Phase 9: one gpu-10kx10k window on the composed path
+    (affinity_aware=False): every policy with min-max on the auction, and
+    softmax and no normalizer on balanced_cpu_diskio and least_allocated
+    on both assigners; each equal to its plain run, masks and scores
+    included."""
+    engine = port["TorchEngine"]()
+    cases = [(p, "min_max", "auction") for p in port["POLICIES"]] + [
+        (p, nz, a) for p in ("balanced_cpu_diskio", "least_allocated")
+        for nz in ("softmax", "none") for a in ("greedy", "auction")]
+    for policy, normalizer, assigner in cases:
+        kw = dict(policy=policy, normalizer=normalizer, assigner=assigner, fused=False,
+                  affinity_aware=False)
+        what = f"{policy} {normalizer} {assigner} cycle"
+        run = lambda: engine.schedule_batch(snap, window, **kw)  # noqa: E731
+        runs, launches, res = timed_backlog(torch, port, run)
+        plain = engine.schedule_batch(snap, window, **kw, _plain=True)
+        check_equal(torch, f"{what} (vs the plain path)", res, plain)
+        if not (same(torch, res.scores, plain.scores)
+                and same(torch, res.feasible, plain.feasible)):
+            fail(f"{what}: scores or masks differ from the plain path")
+        expect_launches(what, launches, {
+            "masked_score": 0, "row_stats": 0,
+            "auction_bid": None if assigner == "auction" else 0,
+            "greedy_scan": 1 if assigner == "greedy" else 0})
+        emit({"phase": "policy_cycle", "policy": policy, "normalizer": normalizer,
+              "assigner": assigner, "pods": WINDOW, "nodes": snap.allocatable.shape[0],
+              "cycle_ms": statistics.median(runs), "cycle_ms_runs": runs,
+              "n_assigned": int(res.n_assigned), "launches": launches,
+              "equal_to_plain": True})
+        del res, plain
+
+
+def run_soft(torch, port, dev) -> None:
+    """Phase 10: soft=True on constraints-5kx5k with soft_terms(seed 0),
+    kernel path, min-max, affinity_aware=True, both assigners, 5 x 1,024
+    pods: each equal to its plain run, no hard-constraint break, and
+    placing some pods elsewhere than soft=False; then the soft term's
+    device time on one window, and its device ops under torch.profiler."""
+    engine = port["TorchEngine"]()
+    snap, pods = port["gen_config"]("constraints-5kx5k", seed=0, device=dev)
+    snap, pods = soft_terms(snap, pods, seed=0)
+    padded = port["pad_pod_batch"](pods, AFFINITY_WINDOWS * WINDOW)
+    pods_w = port["stack_windows"](padded, WINDOW)
+    n_nodes = snap.allocatable.shape[0]
+    for name, base in AFFINITY_KW.items():
+        kw = dict(base, soft=True)
+        run = lambda: engine.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+        runs, launches, out = timed_backlog(torch, port, run)
+        check_equal(torch, f"soft {name} backlog (vs the plain path)", out,
+                    engine.schedule_windows(snap, pods_w, **kw, _plain=True))
+        expect_launches(f"soft {name} backlog", launches, {
+            "masked_score": AFFINITY_WINDOWS, "row_stats": AFFINITY_WINDOWS,
+            "auction_bid": 0, "greedy_scan": 0})
+        assigned = check_backlog(torch, f"soft {name} backlog", out, AFFINITY_WINDOWS,
+                                 n_nodes, 0.5)
+        viol = final_violations(torch, snap, padded, out.node_idx)
+        if any(v for k, v in viol.items() if k != "placed_checked"):
+            fail(f"soft {name} backlog breaks hard constraints: {viol}")
+        hard_only = engine.schedule_windows(snap, pods_w, **base)
+        moved = int((hard_only.node_idx != out.node_idx).sum())
+        if moved <= 0:
+            fail(f"soft {name} backlog placed every pod as soft=False does")
+        backlog_ms = statistics.median(runs)
+        emit({"phase": f"soft_{name}_schedule_windows", "config": "constraints-5kx5k",
+              "windows": AFFINITY_WINDOWS, "window": WINDOW, "nodes": n_nodes,
+              "backlog_ms": backlog_ms, "backlog_ms_runs": runs,
+              "pods_per_s": AFFINITY_WINDOWS * WINDOW / (backlog_ms / 1e3),
+              "n_assigned": assigned, "moved_by_soft": moved, "violations": viol,
+              "launches": launches, "equal_to_plain": True})
+    window = type(padded)(*[f[:WINDOW] for f in padded])
+    soft_fn = lambda: port["compute_soft_scores"](snap, window)  # noqa: E731
+    ms, held = device_ms(torch, soft_fn, n=10)
+    call_ms = cuda_ms(torch, soft_fn, n=10)
+    emit({"phase": "soft_term_device_ms", "pods": WINDOW, "nodes": n_nodes,
+          "selectors": int(snap.domain_counts.shape[1]), "device_ms_per_window": ms,
+          "device_held": held, "call_ms": call_ms})
+    emit({"phase": "profile_soft_term", **device_profile(torch, soft_fn, call_ms)})
+
+
+def run_wide(torch, port, dev) -> None:
+    """Phase 11: 40 selectors (above MAX_FUSED_SELECTORS) on 5,000 nodes
+    and 5,000 pods padded to 5 x 1,024, both assigners, kernel path with
+    min-max: affinity_aware=False (K1 without selector rows, the
+    count-based families outside it) and affinity_aware=True; each equal
+    to its plain run, the affinity_aware=True runs without a
+    hard-constraint break."""
+    engine = port["TorchEngine"]()
+    feats = dict(constraints=True, n_selectors=40)
+    snap = port["gen_cluster"](5_000, seed=0, device=dev, **feats)
+    pods = port["gen_pods"](5_000, seed=1, device=dev, **feats)
+    padded = port["pad_pod_batch"](pods, AFFINITY_WINDOWS * WINDOW)
+    pods_w = port["stack_windows"](padded, WINDOW)
+    n_nodes = snap.allocatable.shape[0]
+    for assigner in ("greedy", "auction"):
+        for aa in (False, True):
+            kw = dict(SLICE_KW, assigner=assigner, affinity_aware=aa)
+            what = f"S=40 {assigner} affinity_aware={aa} backlog"
+            run = lambda: engine.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+            runs, launches, out = timed_backlog(torch, port, run, n_timed=1)
+            check_equal(torch, f"{what} (vs the plain path)", out,
+                        engine.schedule_windows(snap, pods_w, **kw, _plain=True))
+            expect_launches(what, launches, {
+                "masked_score": AFFINITY_WINDOWS, "row_stats": AFFINITY_WINDOWS,
+                "auction_bid": None if (assigner == "auction" and not aa) else 0,
+                "greedy_scan": AFFINITY_WINDOWS if (assigner == "greedy" and not aa) else 0})
+            assigned = check_backlog(torch, what, out, AFFINITY_WINDOWS, n_nodes, 0.5)
+            viol = final_violations(torch, snap, padded, out.node_idx)
+            if aa and any(v for k, v in viol.items() if k != "placed_checked"):
+                fail(f"{what} breaks hard constraints: {viol}")
+            emit({"phase": "wide_selectors_schedule_windows", "assigner": assigner,
+                  "affinity_aware": aa, "selectors": int(snap.domain_counts.shape[1]),
+                  "windows": AFFINITY_WINDOWS, "window": WINDOW, "nodes": n_nodes,
+                  "backlog_ms": runs[0], "n_assigned": assigned, "violations": viol,
+                  "launches": launches, "equal_to_plain": True})
 
 
 def main() -> None:
@@ -958,7 +1411,10 @@ def main() -> None:
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
         from kubernetes_scheduler_tpu_torch.engine import (
+            NORMALIZERS,
+            POLICIES,
             compute_free_capacity,
+            compute_soft_scores,
             fused_score_operands,
             make_affinity_state,
         )
@@ -982,7 +1438,8 @@ def main() -> None:
         alpha_beta=alpha_beta, gen_cluster=gen_cluster, gen_pods=gen_pods,
         gen_config=gen_config, greedy_scan_operands=greedy_scan_operands,
         assign=assign, pad_pod_batch=pad_pod_batch,
-        make_affinity_state=make_affinity_state,
+        make_affinity_state=make_affinity_state, POLICIES=POLICIES,
+        NORMALIZERS=NORMALIZERS, compute_soft_scores=compute_soft_scores,
     )
 
     # ---- 1. device -------------------------------------------------------
@@ -998,6 +1455,10 @@ def main() -> None:
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)  # name, power limit
     dev = torch.device("cuda", 0)
+    # the soft term's matrix products must run in full float32 (integer
+    # weights are then exact, so the card equals the CPU)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("TF32 is enabled for float32 matrix products")
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -1032,9 +1493,31 @@ def main() -> None:
     check_greedy_host_reads(torch, port, dev)
 
     # ---- 7. the new options, card vs the port's CPU path ----------------
+    t0 = time.perf_counter()
     run_card_vs_cpu(torch, port)
+    emit({"phase": "card_vs_cpu_seconds", "seconds": time.perf_counter() - t0})
 
-    # ---- 8. the kernels line and the result -----------------------------
+    # ---- 8. the weighted multi-scorer backlog ---------------------------
+    t0 = time.perf_counter()
+    multi = run_multi_scorer(torch, port, dev)
+    emit({"phase": "multi_scorer_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 9. every policy and normalizer on one gpu-10kx10k window -------
+    t0 = time.perf_counter()
+    run_policies(torch, port, snap, window)
+    emit({"phase": "policies_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 10. soft scores on constraints-5kx5k ---------------------------
+    t0 = time.perf_counter()
+    run_soft(torch, port, dev)
+    emit({"phase": "soft_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 11. 40 selectors ------------------------------------------------
+    t0 = time.perf_counter()
+    run_wide(torch, port, dev)
+    emit({"phase": "wide_selectors_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 12. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -1049,6 +1532,7 @@ def main() -> None:
             "bound_by": main_line["bound_by"], "library_ms": None,
             "parity": "bitwise", "case": MAIN_CASE[name],
             "main_path": f"{MAIN_PATH[name]} backlog",
+            "multi_scorer_launches": {k: v[name] for k, v in multi.items()},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

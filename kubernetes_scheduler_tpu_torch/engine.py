@@ -1,23 +1,28 @@
 """The batch scheduling engine on PyTorch (counterpart of
-kubernetes_scheduler_tpu/engine.py, the fused path).
+kubernetes_scheduler_tpu/engine.py).
 
 For a window of pending pods and a cluster snapshot, one cycle computes
 
-    utilization stats -> fused masked score (K2 bounds, K1 score and
-    feasibility) -> greedy (K4 scan) or auction (K3 bid head per round)
-    assignment -> gangs
+    scores and feasibility -> soft score terms (soft=True) -> greedy
+    (K4 scan) or auction (K3 bid head per round) assignment -> gangs
 
 and returns pod -> node bindings; `schedule_windows` carries node
-capacity and domain counts across a backlog of windows. With
-affinity_aware=True, K1 runs without the count-based selector families
-and both assigners enforce them against live in-window counts. The
-types mirror the reference's NamedTuples field for field, with torch
-tensors as leaves on one explicit device.
+capacity and domain counts across a backlog of windows. Scores and
+feasibility come from one of three paths: fused=True runs the masked
+score through kernels K2 and K1 (policy balanced_cpu_diskio, normalizer
+"none" or "min_max"); fused=False composes any policy of POLICIES, the
+feasibility masks and any normalizer of NORMALIZERS in plain PyTorch;
+score_plugins sums weighted policies as the upstream framework does.
+With affinity_aware=True the count-based selector families stay out of
+the static mask and both assigners enforce them against live in-window
+counts. On a selector axis wider than MAX_FUSED_SELECTORS the fused path
+evaluates those families outside K1. The types mirror the reference's
+NamedTuples field for field, with torch tensors as leaves on one
+explicit device.
 
-Ported: fused=True with policy balanced_cpu_diskio, normalizer "none" or
-"min_max", assigner "greedy" or "auction", affinity_aware False or True,
-on selector axes up to MAX_FUSED_SELECTORS. Every other option raises
-NotImplementedError naming the ROADMAP item that adds it.
+Ported: every option of the reference's schedule_batch except `layout`
+(resident kernel-layout buffers), which raises NotImplementedError
+naming the ROADMAP item that adds it.
 """
 
 from __future__ import annotations
@@ -32,24 +37,59 @@ from kubernetes_scheduler_tpu_torch.ops.assign import (
     NEG,
     AffinityState,
     AssignResult,
+    anti_reverse_bad,
     auction_assign,
     greedy_assign,
     pod_has_anti_onehot,
 )
+from kubernetes_scheduler_tpu_torch.ops.collect import collect_max_card_values
 from kubernetes_scheduler_tpu_torch.ops.constraints import (
     node_affinity_fit,
+    node_affinity_preference,
+    node_name_fit,
+    pod_affinity_fit,
+    pod_affinity_preference,
+    prefer_no_schedule_penalty,
     taint_toleration_fit,
+    topology_spread_fit,
 )
-from kubernetes_scheduler_tpu_torch.ops.feasibility import card_fit
+from kubernetes_scheduler_tpu_torch.ops.feasibility import card_fit, resource_fit
 from kubernetes_scheduler_tpu_torch.ops.fused import (
     MAX_FUSED_SELECTORS,
     fused_masked_score,
 )
 from kubernetes_scheduler_tpu_torch.ops.gang import gang_mask_assign
-from kubernetes_scheduler_tpu_torch.ops.normalize import F32_MAX
+from kubernetes_scheduler_tpu_torch.ops.normalize import (
+    F32_MAX,
+    min_max_normalize,
+    softmax_normalize,
+)
+from kubernetes_scheduler_tpu_torch.ops.score import (
+    balanced_allocation,
+    balanced_cpu_diskio,
+    balanced_diskio,
+    card_score,
+    free_capacity,
+    image_locality,
+    least_allocated,
+)
 from kubernetes_scheduler_tpu_torch.ops.stats import utilization_stats
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+POLICIES = (
+    "balanced_cpu_diskio", "balanced_diskio", "free_capacity", "card",
+    "least_allocated", "balanced_allocation", "image_locality",
+)
+ASSIGNERS = ("greedy", "auction")
+NORMALIZERS = ("min_max", "softmax", "none")
+# plugins whose raw output is already on the framework's [0, 100]
+# MaxNodeScore scale (upstream runs no NormalizeScore for them); every
+# other plugin is min-max normalized per pod before weighting
+PRESCALED_PLUGINS = (
+    "least_allocated", "balanced_allocation", "image_locality",
+    "balanced_diskio",
+)
 
 
 class SnapshotArrays(NamedTuple):
@@ -311,8 +351,8 @@ def make_pod_batch(
 
 class ScheduleResult(NamedTuple):
     node_idx: torch.Tensor     # [p] int32 assigned node, -1 = unschedulable
-    scores: torch.Tensor       # [p, n] (fused: the masked matrix)
-    raw_scores: torch.Tensor   # [p, n]
+    scores: torch.Tensor       # [p, n] normalized (+ soft term; fused: masked)
+    raw_scores: torch.Tensor   # [p, n] before normalization (fused: masked)
     feasible: torch.Tensor     # [p, n] bool
     free_after: torch.Tensor   # [n, r]
     n_assigned: torch.Tensor   # [] int32
@@ -324,18 +364,14 @@ class WindowsResult(NamedTuple):
     n_assigned: torch.Tensor  # [] int32 total across windows
 
 
-# ---- the cycle ----------------------------------------------------------
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet: ROADMAP queue A, {item}"
-    )
+# ---- options and shared pieces -----------------------------------------
 
 
 def check_fused_contract(policy: str, normalizer: str) -> None:
     """The fused path's (policy, normalizer) domain on the dense surface
-    (reference: engine.check_fused_contract with min_max_ok=True)."""
+    (reference: engine.check_fused_contract with min_max_ok=True): the
+    kernel computes one policy, and its epilogue one normalizer; softmax
+    stays unfused (its statistics would fold the NEG sentinels)."""
     if policy != "balanced_cpu_diskio":
         raise ValueError(
             f"fused kernel only implements balanced_cpu_diskio, not {policy!r}"
@@ -370,6 +406,168 @@ def local_spread_dmin(snapshot: SnapshotArrays) -> torch.Tensor:
     return torch.where(
         snapshot.node_mask[:, None], snapshot.domain_counts, F32_MAX
     ).amin(dim=0)
+
+
+# ---- scores ---------------------------------------------------------------
+
+
+def compute_scores(
+    snapshot: SnapshotArrays, pods: PodBatch, policy: str
+) -> torch.Tensor:
+    """[p, n] raw scores of one policy of POLICIES (reference:
+    engine.compute_scores)."""
+    if policy == "balanced_cpu_diskio":
+        stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+        return balanced_cpu_diskio(stats, pods.request[:, 0], pods.r_io)
+    if policy == "balanced_diskio":
+        stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+        return balanced_diskio(stats, snapshot.disk_io, pods.r_io, snapshot.node_mask)
+    if policy == "free_capacity":
+        s = free_capacity(snapshot.cpu_pct, snapshot.mem_pct, snapshot.disk_io)
+        return s[None, :].expand(pods.request.shape[0], s.shape[0])
+    if policy == "card":
+        node_fits, per_card = card_fit(
+            snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
+            pods.want_number, pods.want_memory, pods.want_clock,
+        )
+        maxima = collect_max_card_values(
+            snapshot.cards, per_card & node_fits[:, :, None]
+        )
+        return card_score(snapshot.cards, snapshot.card_mask, per_card, maxima)
+    if policy == "least_allocated":
+        return least_allocated(snapshot.allocatable, snapshot.requested, pods.request)
+    if policy == "balanced_allocation":
+        return balanced_allocation(snapshot.allocatable, snapshot.requested, pods.request)
+    if policy == "image_locality":
+        return image_locality(snapshot.image_scaled, pods.image_ids, pods.n_containers)
+    raise ValueError(f"unknown policy {policy!r}; expected one of {POLICIES}")
+
+
+def combine_scores(
+    snapshot: SnapshotArrays, pods: PodBatch, score_plugins: tuple
+) -> torch.Tensor:
+    """[p, n] the upstream framework's weighted multi-plugin score
+    (reference: engine.combine_scores): each (policy, weight) pair scores
+    every node, a plugin outside PRESCALED_PLUGINS is min-max normalized
+    per pod first, and the weighted terms are summed; the sum is final
+    (the framework never rescales it)."""
+    if not score_plugins:
+        raise ValueError("score_plugins must name at least one plugin")
+    total = None
+    for name, weight in score_plugins:
+        raw = compute_scores(snapshot, pods, name)
+        if name not in PRESCALED_PLUGINS:
+            raw = min_max_normalize(raw, snapshot.node_mask)
+        term = raw * float(weight)
+        total = term if total is None else total + term
+    return total
+
+
+def normalize_scores(
+    raw: torch.Tensor, node_mask: torch.Tensor, normalizer: str
+) -> torch.Tensor:
+    """Dispatch over NORMALIZERS (reference: engine.normalize_scores)."""
+    if normalizer == "min_max":
+        return min_max_normalize(raw, node_mask)
+    if normalizer == "softmax":
+        return softmax_normalize(raw, node_mask)
+    if normalizer == "none":
+        return raw
+    raise ValueError(f"unknown normalizer {normalizer!r}")
+
+
+def compute_soft_scores(
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    *,
+    taint_penalty_weight: float = 1.0,
+    spread_dmin: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[p, n] float32 soft-constraint term (reference:
+    engine.compute_soft_scores), upstream's scoring-only families: +weight
+    per satisfied preferred node-affinity term, +/-weight per preferred
+    (anti)affinity selector matched in the node's domain, the symmetric
+    half (running pods' preferred terms whose selector the pod matches:
+    +pref_attract, -pref_avoid), -taint_penalty_weight per untolerated
+    PreferNoSchedule taint, and -(count - min count) per ScheduleAnyway
+    spread constraint. spread_dmin: the [S] minimum to measure skew from
+    (default local_spread_dmin). Added to the normalized score when a
+    cycle runs with soft=True; it never filters."""
+    na = node_affinity_preference(
+        snapshot.node_labels, snapshot.node_label_mask,
+        pods.pna_key, pods.pna_op, pods.pna_vals, pods.pna_val_mask,
+        pods.pna_mask, pods.pna_weight, pods.pna_term,
+    )
+    pa = pod_affinity_preference(
+        snapshot.domain_counts,
+        pods.pref_affinity_sel, pods.pref_affinity_weight,
+        pods.pref_anti_sel, pods.pref_anti_weight,
+    )
+    pen = prefer_no_schedule_penalty(
+        snapshot.taints, snapshot.taint_mask, pods.tolerations, pods.tol_mask
+    )
+    matches = match_matrix(pods, snapshot.pref_attract.shape[1]).to(_F32)
+    sym = matches @ (snapshot.pref_attract - snapshot.pref_avoid).T       # [p, n]
+    s = snapshot.domain_counts.shape[1]
+    ssel = pods.soft_spread_sel                                           # [p, K]
+    ok = (ssel >= 0) & (ssel < s)
+    idx = torch.clamp(ssel, 0, max(s - 1, 0)).long()
+    dmin = local_spread_dmin(snapshot) if spread_dmin is None else spread_dmin
+    skew = snapshot.domain_counts[:, idx] - dmin[idx][None, :, :]         # [n, p, K]
+    soft_spread = torch.where(ok[None, :, :], skew, 0.0).sum(-1).T        # [p, n]
+    return na + pa + sym - taint_penalty_weight * pen - soft_spread
+
+
+# ---- feasibility ----------------------------------------------------------
+
+
+def other_fit(snapshot: SnapshotArrays, pods: PodBatch) -> torch.Tensor:
+    """[p, n] bool: GPU cards, taints and required node affinity, the
+    families the fused kernel takes as its one `other` operand."""
+    gpu_fits, _ = card_fit(
+        snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
+        pods.want_number, pods.want_memory, pods.want_clock,
+    )
+    return gpu_fits & taint_toleration_fit(
+        snapshot.taints, snapshot.taint_mask, pods.tolerations, pods.tol_mask
+    ) & node_affinity_fit(
+        snapshot.node_labels, snapshot.node_label_mask,
+        pods.na_key, pods.na_op, pods.na_vals, pods.na_val_mask, pods.na_mask,
+        pods.na_term,
+    )
+
+
+def count_families_fit(snapshot: SnapshotArrays, pods: PodBatch) -> torch.Tensor:
+    """[p, n] bool: the count-based families against pre-window counts:
+    the pod's own (anti)affinity, no avoider of a selector it matches in
+    the node's domain (upstream checks running pods' anti terms too), and
+    hard topology spread."""
+    matches = match_matrix(pods, snapshot.avoid_counts.shape[1])
+    return pod_affinity_fit(
+        snapshot.domain_counts, pods.affinity_sel, pods.anti_affinity_sel
+    ) & ~anti_reverse_bad(matches, snapshot.avoid_counts) & topology_spread_fit(
+        snapshot.domain_counts, snapshot.node_mask, pods.spread_sel, pods.spread_max
+    )
+
+
+def compute_feasibility(
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    *,
+    include_pod_affinity: bool = True,
+) -> torch.Tensor:
+    """[p, n] bool, every filter ANDed (reference:
+    engine.compute_feasibility): resource fit, pod mask, nodeName pin,
+    other_fit, and with include_pod_affinity the count-based families
+    against pre-window counts (affinity_aware=False); without it the
+    assigners hold those against live in-window counts."""
+    out = resource_fit(
+        snapshot.allocatable, snapshot.requested, pods.request, snapshot.node_mask
+    ) & other_fit(snapshot, pods) & pods.pod_mask[:, None]
+    out = out & node_name_fit(pods.target_node, snapshot.allocatable.shape[0])
+    if include_pod_affinity:
+        out = out & count_families_fit(snapshot, pods)
+    return out
 
 
 def _fused_affinity_operands(
@@ -412,36 +610,27 @@ def fused_score_operands(
 ) -> dict:
     """Keyword arguments of ops.fused.fused_masked_score for one window:
     the utilization vectors, resources, pod mask, nodeName pins, and the
-    `other` mask (cards & taints & node affinity, plain PyTorch, as in
-    the reference). With include_pod_affinity (affinity_aware=False) the
-    count-based selector families are evaluated against pre-window counts:
-    K1 folds their selector rows and the pod mask carries selector
-    validity. Without it (affinity_aware=True) K1 gets no selector rows:
-    the assigners enforce those families against live counts."""
+    `other` mask (other_fit, plain PyTorch, as in the reference). With
+    include_pod_affinity (affinity_aware=False) the count-based selector
+    families are evaluated against pre-window counts: on a selector axis
+    of up to MAX_FUSED_SELECTORS K1 folds their selector rows and the pod
+    mask carries selector validity; on a wider axis they join `other`
+    (count_families_fit) and K1 gets no selector rows. Without it
+    (affinity_aware=True) K1 gets no selector rows: the assigners enforce
+    those families against live counts."""
     stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
-    s = snapshot.domain_counts.shape[1]
-    if s > MAX_FUSED_SELECTORS:
-        raise _not_ported(
-            f"a selector axis of {s} > {MAX_FUSED_SELECTORS} (the unfused "
-            "fallback for the count-based families)",
-            "'the wide-selector fallback'",
-        )
+    fold = (
+        include_pod_affinity
+        and snapshot.domain_counts.shape[1] <= MAX_FUSED_SELECTORS
+    )
     aff_pod = aff_node = None
     pod_ok = pods.pod_mask
-    if include_pod_affinity:
+    if fold:
         aff_pod, aff_node, valid = _fused_affinity_operands(snapshot, pods)
         pod_ok = pod_ok & valid
-    gpu_fits, _ = card_fit(
-        snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
-        pods.want_number, pods.want_memory, pods.want_clock,
-    )
-    other = gpu_fits & taint_toleration_fit(
-        snapshot.taints, snapshot.taint_mask, pods.tolerations, pods.tol_mask
-    ) & node_affinity_fit(
-        snapshot.node_labels, snapshot.node_label_mask,
-        pods.na_key, pods.na_op, pods.na_vals, pods.na_val_mask, pods.na_mask,
-        pods.na_term,
-    )
+    other = other_fit(snapshot, pods)
+    if include_pod_affinity and not fold:
+        other = other & count_families_fit(snapshot, pods)
     return dict(
         u=stats.u, v=stats.v, node_mask=snapshot.node_mask,
         alloc=snapshot.allocatable, reqd=snapshot.requested,
@@ -461,8 +650,8 @@ def _fused_masked_scores(
     _plain: bool = False,
 ) -> torch.Tensor:
     """[p, n] score where feasible, NEG elsewhere, through K2 and K1 (the
-    score, resource fit, nodeName pin, the selector families when
-    include_pod_affinity, and the `other` mask in one kernel pass)."""
+    score, resource fit, nodeName pin, the selector families when they
+    fold, and the `other` mask in one kernel pass)."""
     ops = fused_score_operands(
         snapshot, pods, include_pod_affinity=include_pod_affinity
     )
@@ -488,6 +677,9 @@ def make_affinity_state(snapshot: SnapshotArrays, pods: PodBatch) -> AffinitySta
     )
 
 
+# ---- the cycle ------------------------------------------------------------
+
+
 def finish_cycle(
     snapshot: SnapshotArrays,
     pods: PodBatch,
@@ -497,12 +689,17 @@ def finish_cycle(
     *,
     assigner: str = "greedy",
     affinity_aware: bool = True,
+    soft: bool = False,
     auction_rounds: int = 1024,
     auction_price_frac: float = 1.0,
     _plain: bool = False,
 ) -> ScheduleResult:
-    """Cycle tail: greedy or auction assignment (with live in-window
-    affinity when affinity_aware), then the all-or-nothing gang pass."""
+    """Cycle tail: the soft score terms (soft=True) added to the
+    normalized score (on the fused path NEG cells stay about NEG), greedy
+    or auction assignment (with live in-window affinity when
+    affinity_aware), then the all-or-nothing gang pass."""
+    if soft:
+        norm = norm + compute_soft_scores(snapshot, pods)
     free = compute_free_capacity(snapshot)
     affinity = make_affinity_state(snapshot, pods) if affinity_aware else None
     if assigner == "greedy":
@@ -530,9 +727,6 @@ def finish_cycle(
     )
 
 
-ASSIGNERS = ("greedy", "auction")
-
-
 def schedule_batch(
     snapshot: SnapshotArrays,
     pods: PodBatch,
@@ -551,40 +745,59 @@ def schedule_batch(
 ) -> ScheduleResult:
     """One scheduling cycle for the whole pending window, on the device
     the tensors live on (reference: engine.schedule_batch; the defaults
-    are the reference's). The ported path is fused=True: K2 and K1 build
-    the masked score matrix, then the greedy scan runs K4 or the
-    auction's rounds run K3. With affinity_aware=True, K1 leaves out the
-    count-based selector families and the assigner enforces them against
-    live in-window counts (plain PyTorch, as the reference's XLA bodies).
-    As in the reference's fused replies, `scores` and `raw_scores` are
-    the masked matrix.
+    are the reference's).
+
+    fused=True: K2 and K1 build the masked score matrix (policy
+    balanced_cpu_diskio, normalizer "none" or "min_max", else ValueError);
+    as in the reference's fused replies, `scores` and `raw_scores` are
+    that masked matrix. fused=False: compute_scores, compute_feasibility
+    and normalize_scores in plain PyTorch, for any policy and normalizer.
+    score_plugins=((policy, weight), ...): combine_scores replaces
+    `policy`, which is then ignored with `normalizer`; it needs
+    fused=False (ValueError otherwise). soft=True adds
+    compute_soft_scores to the normalized score. The greedy scan runs K4
+    and the auction's rounds run K3 when affinity_aware=False; with
+    affinity_aware=True the count-based selector families leave the
+    static mask and the assigner enforces them against live in-window
+    counts (plain PyTorch, as the reference's XLA bodies). `layout` (a
+    resident FusedLayout) is not ported: NotImplementedError.
 
     `_plain=True` runs every kernel's plain PyTorch version instead, on
     any device, to hold the kernel path against it."""
-    if score_plugins:
-        raise _not_ported("score_plugins", "'score_plugins'")
     if layout is not None:
-        raise _not_ported(
-            "a resident FusedLayout", "'resident state and layouts'"
+        raise NotImplementedError(
+            "a resident FusedLayout is not ported to the PyTorch engine yet: "
+            "ROADMAP queue A, item 5 (resident state and layouts)"
         )
-    if not fused:
-        raise _not_ported(
-            "fused=False (the unfused composition)",
-            "'the unfused path and other policies'",
-        )
-    check_fused_contract(policy, normalizer)
-    if soft:
-        raise _not_ported("soft=True", "'soft scores'")
     if assigner not in ASSIGNERS:
         raise ValueError(f"assigner must be one of {ASSIGNERS}, not {assigner!r}")
-    raw = _fused_masked_scores(
-        snapshot, pods, include_pod_affinity=not affinity_aware,
-        normalizer=normalizer, _plain=_plain,
-    )
-    feasible = raw > NEG * 0.5
+    include_pod_affinity = not affinity_aware
+    if score_plugins:
+        if fused:
+            raise ValueError(
+                "score_plugins is incompatible with fused=True (the fused "
+                "kernel computes the single yoda formula)"
+            )
+        raw = norm = combine_scores(snapshot, pods, score_plugins)
+        feasible = compute_feasibility(
+            snapshot, pods, include_pod_affinity=include_pod_affinity
+        )
+    elif fused:
+        check_fused_contract(policy, normalizer)
+        raw = norm = _fused_masked_scores(
+            snapshot, pods, include_pod_affinity=include_pod_affinity,
+            normalizer=normalizer, _plain=_plain,
+        )
+        feasible = raw > NEG * 0.5
+    else:
+        raw = compute_scores(snapshot, pods, policy)
+        feasible = compute_feasibility(
+            snapshot, pods, include_pod_affinity=include_pod_affinity
+        )
+        norm = normalize_scores(raw, snapshot.node_mask, normalizer)
     return finish_cycle(
-        snapshot, pods, raw, raw, feasible,
-        assigner=assigner, affinity_aware=affinity_aware,
+        snapshot, pods, raw, norm, feasible,
+        assigner=assigner, affinity_aware=affinity_aware, soft=soft,
         auction_rounds=auction_rounds, auction_price_frac=auction_price_frac,
         _plain=_plain,
     )

@@ -105,20 +105,18 @@ def test_torch_generator_matches_reference(features):
 
 
 @pytest.mark.parametrize(
-    "kw,n_sel",
-    [(dict(KW, fused=False), 1), (dict(KW, assigner="greedy", fused=False), 1),
-     (dict(KW, affinity_aware=True), 33), (dict(KW, soft=True), 1),
-     (dict(KW, score_plugins=(("least_allocated", 1.0),)), 1)],
-    ids=["composed", "composed-greedy", "wide-selectors", "soft", "plugins"],
+    "kw,error,match",
+    [(dict(KW, layout=object()), NotImplementedError, "ROADMAP queue A, item 5"),
+     (dict(KW, normalizer="softmax"), ValueError, "normalizer"),
+     (dict(KW, score_plugins=(("least_allocated", 1.0),)), ValueError, "score_plugins")],
+    ids=["layout", "softmax-kernel", "plugins-kernel"],
 )
-def test_torch_unported_options_raise(kw, n_sel):
+def test_torch_unported_options_raise(kw, error, match):
+    """Only a resident layout is still unported; softmax and score plugins
+    are refused on the kernel path, as the reference refuses them."""
     _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
-    if n_sel > 1:  # a selector axis above MAX_FUSED_SELECTORS
-        ts = ts._replace(domain_counts=torch.zeros(16, n_sel))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         engine.schedule_batch(ts, tp, **kw)
-    with pytest.raises(ValueError, match="normalizer"):
-        engine.schedule_batch(ts, tp, **dict(KW, normalizer="softmax"))
 
 
 def test_torch_plain_flag_matches_default_on_cpu():
