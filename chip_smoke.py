@@ -20,7 +20,10 @@ Phases; the first failure exits non-zero and no result line is printed:
    active, nonzero prices, the capacity left after a first round); K4
    also on contended capacity, planted ties, all-NEG rows with zero
    requests on oversubscribed resources and r = 7, one-entry candidate
-   lists, lists that run out at a tie boundary, and a negative request that trips its exactness guard, each
+   lists, lists that run out at a tie boundary, a negative request that trips its exactness guard, and
+   NaN cells (in several rows, beside +inf, without capacity, and at a
+   one-entry list's boundary: a NaN qualifies and ranks above every
+   number, the first NaN first), each
    line with the pods that took K4's row-scan fallback; K3 and K4 also at
    an odd width (n % 4 != 0: scalar loads); kernel times are device time
    per launch behind a held stream, plain versions' times CUDA events
@@ -42,7 +45,8 @@ Phases; the first failure exits non-zero and no result line is printed:
    which must see no host read;
 7. small clusters scheduled on the card must equal the port's CPU path
    (which the tests hold against the JAX reference), for the auction,
-   greedy, and both assigners with affinity; then one window with each
+   greedy, and both assigners with affinity, and greedy on fault C1's
+   cluster (NaN scores, all 24 pods placed); then one window with each
    option of the scoring surface (every policy x normalizer on both
    assigners, score_plugins, soft on both paths, 40 selectors): masks
    equal, scores within score_tolerance (the CPU tests' bound), decisions
@@ -64,21 +68,29 @@ Phases; the first failure exits non-zero and no result line is printed:
 11. 40 selectors (above the kernel's 32) on 5,000 nodes, both assigners,
    affinity_aware False and True, each equal to its plain run, no
    hard-constraint break with affinity_aware=True;
-12. the kernels line, then the result line.
+12. resident cluster state at gpu-10kx10k (run_resident): a full upload
+   and 8 delta cycles of one 1,024-pod window each, on the auction and
+   on greedy, every cycle bitwise a full upload's, the retained snapshot
+   and layout bitwise a fresh build's, the delta fold free of host reads,
+   host-to-device bytes and wall ms per delta and per full-upload cycle;
+   epoch-gap and invalidate flushes, the resident backlog and a fleet
+   dispatch, each equal to its non-resident call;
+13. the kernels line, then the result line.
 
-Phases 7-11 print their seconds. Timed runs are medians of 3; equality
+Phases 7-12 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, and nothing of JAX.
 
     python3 chip_smoke.py --parent-tree DIR
 
-also builds the csrc/fused.cu of DIR, a checkout of commit e09185f (the K1
-and K2 kernels before their redesign), with the same flags into DIR, and
-times its K1 and K2 beside this tree's on every K1 and K2 case of phase 3,
-in turns (parent, this tree, this tree, parent): `parent_ms`. Each line
-says whether the parent equalled the plain version (`parent_bitwise`; the
-parent's K2 drops a NaN).
+also builds the csrc/fused.cu of DIR, a checkout of an earlier commit
+whose K1, K2 and K4 have this tree's C interfaces (e09185f or later),
+with the same flags into DIR, and times its K1, K2 and K4 beside this
+tree's on every K1, K2 and K4 case of phase 3, in turns (parent, this
+tree, this tree, parent): `parent_ms`. Each line says whether the parent
+equalled the plain version (`parent_bitwise`; e09185f's K2 drops a NaN,
+and up to commit 86ed4fd K4 never takes a NaN cell).
 """
 
 from __future__ import annotations
@@ -439,9 +451,9 @@ def max_abs_err(a, b) -> float:
 
 
 def load_parent(build, tree: str) -> ctypes.CDLL:
-    """K1's and K2's launchers of commit e09185f's csrc/fused.cu (the
-    kernels before their redesign), built with this tree's flags into that
-    tree, with that commit's C interfaces."""
+    """K1's, K2's and K4's launchers of an earlier tree's csrc/fused.cu,
+    built with this tree's flags into that tree (their C interfaces are
+    this tree's since commit e09185f)."""
     pkg = Path(tree) / "kubernetes_scheduler_tpu_torch"
     path, _ = build.build(pkg / "csrc" / "fused.cu", pkg / "_build")
     lib = ctypes.CDLL(str(path))
@@ -451,7 +463,10 @@ def load_parent(build, tree: str) -> ctypes.CDLL:
     lib.ks_masked_score.argtypes = [ptr] * 15 + [num] * 4 + [ptr]
     # alpha, beta, u, v, node_mask, out, p, n, stream
     lib.ks_row_stats.argtypes = [ptr] * 6 + [num] * 2 + [ptr]
-    for fn in (lib.ks_masked_score, lib.ks_row_stats):
+    # sj, req, free0, free_after, picks, list_val, list_col, list_cnt,
+    # fallbacks, p, n, r, list_len, stream
+    lib.ks_greedy_scan.argtypes = [ptr] * 9 + [num] * 4 + [ptr]
+    for fn in (lib.ks_masked_score, lib.ks_row_stats, lib.ks_greedy_scan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -484,6 +499,25 @@ def parent_k2(torch, lib, alpha, beta, u, v, node_mask):
     if rc:
         fail(f"the parent's row_stats failed to launch ({rc})")
     return out
+
+
+def parent_k4(torch, lib, sj, req, free0, list_len):
+    """The parent's K4 on greedy_scan's arguments: (picks, free_after)."""
+    p, n = sj.shape
+    r, dev, L = req.shape[1], sj.device, 256
+    picks = torch.empty(p, dtype=torch.int32, device=dev)
+    free_after = torch.empty((n, r), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((p, L), dtype=torch.float32, device=dev),
+               torch.empty((p, L), dtype=torch.int32, device=dev),
+               torch.empty(p, dtype=torch.int32, device=dev),
+               torch.empty(1, dtype=torch.int32, device=dev))
+    rc = lib.ks_greedy_scan(sj.data_ptr(), req.data_ptr(), free0.data_ptr(),
+                            free_after.data_ptr(), picks.data_ptr(),
+                            *[t.data_ptr() for t in scratch], p, n, r, list_len,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        fail(f"the parent's greedy_scan failed to launch ({rc})")
+    return picks, free_after
 
 
 def kernel_times(torch, new_fn, old_fn=None) -> dict:
@@ -764,7 +798,9 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent=None) ->
 
     # K4 on the greedy cycle's operands in scan order, then on contended
     # capacity, planted ties, NEG rows with zero requests at r = 7, one-entry
-    # lists, lists that run out at a tie boundary, and a negative request
+    # lists, lists that run out at a tie boundary, a negative request, an
+    # odd width, and NaN cells (several rows, beside +inf, without
+    # capacity, at a one-entry list's boundary)
     _, sj, req, free = port["greedy_scan_operands"](
         raw, raw > NEG * 0.5, window.request, free, window.priority, window.pod_mask)
     p, n = sj.shape
@@ -818,6 +854,41 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent=None) ->
     cases["(g) negative request"] = ((sj, neg_req, free), {})
     # n % 4 != 0: rows are not 16-byte aligned, so scalar loads
     cases["(h) odd width"] = ((sj[:, : n - 1].contiguous(), req, free[: n - 1].contiguous()), {})
+    # NaN cells, which qualify and rank above every number (the first NaN
+    # first): in every fifth row at two columns those rows share (taken by
+    # the first pods, so later ones find them full) and one of their own
+    nan = float("nan")
+    nan_rows = torch.arange(0, p, 5, device=dev)
+    nan_sj = sj.clone()
+    nan_sj[nan_rows, 17] = nan
+    nan_sj[nan_rows, n // 2 + 3] = nan
+    nan_sj[nan_rows, (nan_rows * 53) % n] = nan
+    cases["(i) NaN cells"] = ((nan_sj, req, free), {})
+    # rows holding +inf and NaN: the NaN wins, at a column after the +inf
+    inf_rows = torch.arange(1, p, 7, device=dev)
+    inf_sj = sj.clone()
+    inf_sj[inf_rows, 40] = float("inf")
+    inf_sj[inf_rows, n - 2] = float("inf")
+    inf_sj[inf_rows, 2 * n // 3] = nan
+    inf_sj[inf_rows[::2], 2 * n // 3 + 1] = nan
+    cases["(j) NaN and +inf"] = ((inf_sj, req, free), {})
+    # NaN cells on nodes with no capacity (every request is positive on the
+    # main path): passed over
+    full_cols = torch.arange(11, n, n // 16, device=dev)
+    cap_sj = sj.clone()
+    cap_sj[:, full_cols] = nan
+    cap_free = free.clone()
+    cap_free[full_cols] = 0.0
+    cases["(k) NaN without capacity"] = ((cap_sj, req, cap_free.contiguous()), {})
+    # one-entry lists on nodes that hold one pod each, every row NaN at
+    # columns 5 and 900: pod 0 takes 5, pod 1's list entry (NaN, 5) is taken
+    # and its row scan, restricted to cells ranked after a NaN, finds 900
+    bnd_sj = sj.clone()
+    bnd_sj[:, 5] = nan
+    bnd_sj[:, 900] = nan
+    cases["(l) NaN at a list boundary"] = ((
+        bnd_sj, one_pod.expand(p, r).contiguous(), one_pod.expand(n, r).contiguous(),
+    ), {"_list_len": 1})
     for tag, (k4, kw) in cases.items():
         got_p, got_f = fused.greedy_scan(*k4, **kw)
         torch.cuda.synchronize()
@@ -831,14 +902,32 @@ def check_kernels(torch, port, snap, window, sel_snap, sel_pods, parent=None) ->
             ok = ok and bool((got_p[rows % 7 == 1] == -1).all())
         if tag == "(f) tie boundary":
             ok = ok and bool((got_p[:n_ties] == tie_cols[:p].int()).all())
+        placed = torch.nonzero(got_p >= 0).flatten()
+        nan_picks = int(torch.isnan(k4[0][placed, got_p[placed].long()]).sum())
+        if tag in ("(i) NaN cells", "(j) NaN and +inf", "(l) NaN at a list boundary"):
+            ok = ok and nan_picks > 0
+        if tag == "(k) NaN without capacity":
+            ok = ok and nan_picks == 0
+        if tag == "(l) NaN at a list boundary":
+            ok = ok and got_p[:2].tolist() == [5, 900]
         n_k, rk = k4[0].shape[1], k4[1].shape[1]
         b_ms, b_by = bound(nbytes(*k4, got_p, got_f), p * n_k * (2 + 3 * rk))
+        extra, old_fn = {}, None
+        if parent is not None:
+            list_len = kw.get("_list_len", fused.GREEDY_LIST_LEN)
+            old_p, old_f = parent_k4(torch, parent, *k4, list_len)
+            torch.cuda.synchronize()
+            extra = {"parent_bitwise": same(torch, old_p, want_p) and same(torch, old_f, want_f)}
+            if not extra["parent_bitwise"] and not bool(torch.isnan(k4[0]).any()):
+                fail(f"the parent's greedy_scan ({tag}) differs from the plain version")
+            old_fn = lambda: parent_k4(torch, parent, *k4, list_len)  # noqa: E731
         record({
             "kernel": "greedy_scan", "case": tag, "p": p, "n": n_k, "r": rk,
             "list_len": kw.get("_list_len", fused.GREEDY_LIST_LEN), "bitwise": ok,
             "max_abs_err": max(max_abs_err(got_p, want_p), max_abs_err(got_f, want_f)),
-            "fallbacks": fallbacks,
-            **kernel_times(torch, lambda: fused.greedy_scan(*k4, **kw)),
+            "fallbacks": fallbacks, "nan_cells": int(torch.isnan(k4[0]).sum()),
+            "nan_picks": nan_picks, **extra,
+            **kernel_times(torch, lambda: fused.greedy_scan(*k4, **kw), old_fn),
             "plain_ms": cuda_ms(torch, lambda: fused.greedy_scan_plain(*k4), n=5, warmup=1),
             "bound_us": b_ms * 1e3, "bound_by": b_by, "library_ms": None,
             "placed": int((got_p >= 0).sum()),
@@ -1185,6 +1274,20 @@ def run_card_vs_cpu(torch, port) -> None:
                     type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
         emit({"phase": f"card_vs_cpu_{name}", "nodes": 300, "pods": 96,
               "n_assigned": int(gpu_out.n_assigned), "equal": True})
+    # fault C1's cluster: NaN disk IO on one node turns every min-max score
+    # NaN; greedy must still place all 24 pods, as the reference does
+    nan_snap = port["gen_cluster"](40, seed=1, constraints=True, device="cpu")
+    nan_snap.disk_io[3] = float("nan")
+    nan_pods = port["gen_pods"](24, seed=2, constraints=True, device="cpu")
+    c1_kw = dict(fused=False, normalizer="min_max", assigner="greedy", affinity_aware=False)
+    cpu_out = port["TorchEngine"](device="cpu").schedule_batch(nan_snap, nan_pods, **c1_kw)
+    gpu_out = port["TorchEngine"]().schedule_batch(nan_snap, nan_pods, **c1_kw)
+    check_equal(torch, "C1 cluster, greedy with NaN scores (card vs CPU path)",
+                type(gpu_out)(*[f.cpu() for f in gpu_out]), cpu_out)
+    if int(gpu_out.n_assigned) != 24:
+        fail(f"C1 cluster placed {int(gpu_out.n_assigned)} of 24 pods")
+    emit({"phase": "card_vs_cpu_c1_nan_greedy", "nodes": 40, "pods": 24,
+          "n_assigned": int(gpu_out.n_assigned), "equal": True})
     cpu_engine, card_engine = port["TorchEngine"](device="cpu"), port["TorchEngine"]()
     families: dict = {}
     for family, case, snap, pods, kw in option_cases(port):
@@ -1397,10 +1500,273 @@ def run_wide(torch, port, dev) -> None:
                   "launches": launches, "equal_to_plain": True})
 
 
+def snapshot_delta_np(port, prev, new):
+    """The SnapshotDelta from host snapshot `prev` to `new` (numpy leaves),
+    built as the reference's host builds it (host/snapshot.py:252-323):
+    changed rows of `requested`, of the five utilization series and of
+    the four domain tables, by value, each row vector bucket-padded with
+    the sentinel n to a power of two of at least 8; the node mask whole."""
+    n = new.node_mask.shape[0]
+
+    def changed(names, axis_any):
+        diff = np.zeros(n, bool)
+        for name in names:
+            d = getattr(prev, name) != getattr(new, name)
+            diff |= d.any(1) if axis_any else d
+        return np.flatnonzero(diff)
+
+    def padded(rows, vals):
+        k = 8
+        while k < len(rows):
+            k *= 2
+        out_rows = np.full(k, n, np.int32)
+        out_rows[: len(rows)] = rows
+        out_vals = np.zeros((k,) + vals.shape[1:], np.float32)
+        out_vals[: len(rows)] = vals
+        return out_rows, out_vals
+
+    util, dom = port["UTIL_SERIES"], port["DOMAIN_TABLES"]
+    req = changed(("requested",), True)
+    req_rows, req_vals = padded(req, new.requested[req])
+    u = changed(util, False)
+    util_rows, util_vals = padded(u, np.stack([getattr(new, f)[u] for f in util], -1))
+    d = changed(dom, True)
+    dom_rows, dom_vals = padded(d, np.stack([getattr(new, f)[d] for f in dom], -1))
+    return port["SnapshotDelta"](req_rows, req_vals, util_rows, util_vals, dom_rows,
+                                 dom_vals, new.node_mask.copy())
+
+
+def next_host_snapshot(prev, free_after, rng):
+    """The next cycle's host build after a cycle whose result left
+    `free_after` [n, r] (on the card): the nodes it placed pods on get
+    requested = allocatable - free_after, a seeded 10% of the nodes new
+    utilization (each series scaled by 0.8-1.2), and two nodes flip their
+    mask."""
+    new = {f: getattr(prev, f).copy() for f in prev._fields}
+    alloc = prev.allocatable
+    free = free_after.cpu().numpy()
+    was = np.where(prev.node_mask[:, None], alloc - prev.requested, 0.0)
+    placed = np.flatnonzero((free != was).any(1))
+    new["requested"][placed] = alloc[placed] - free[placed]
+    n = alloc.shape[0]
+    moved = rng.choice(n, n // 10, replace=False)
+    for name in ("disk_io", "cpu_pct", "mem_pct", "net_up", "net_down"):
+        new[name][moved] = (new[name][moved] * rng.uniform(0.8, 1.2, moved.size)).astype(
+            np.float32)
+    new["node_mask"][rng.choice(n, 2, replace=False)] ^= True
+    return type(prev)(**new), placed.size
+
+
+def profiled_h2d_bytes(torch, step):
+    """(bytes, copies, memcpy names) of the host-to-device memcpy events
+    in torch.profiler's Chrome trace (their `bytes` argument) of the
+    second of two calls of `step`: the first is the profiler's warm-up
+    step, since a session can miss the device records of its first
+    activity; bytes is None when the trace has no such event."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda prof: prof.export_chrome_trace(str(path))) as prof:
+            for _ in range(2):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    names = sorted({str(e.get("name")) for e in events if "Memcpy" in str(e.get("name", ""))})
+    copies = [e for e in events if "HtoD" in str(e.get("name", ""))
+              and e.get("ph") == "X" and "bytes" in e.get("args", {})]
+    if not copies:
+        return None, 0, names
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies), names
+
+
+def same_tuple(torch, a, b) -> bool:
+    return all(same(torch, x, y) for x, y in zip(a, b))
+
+
+def run_resident(torch, port, snap, pods) -> dict:
+    """Phase 12: resident cluster state at gpu-10kx10k through TorchEngine()
+    at the main path's options, on the auction and then on greedy: a
+    full upload, then 8 delta cycles of one 1,024-pod window each (the
+    8 x 1,024-pod backlog of phase 4), each delta built here in numpy
+    from the previous cycle's placements, a seeded 10% of the nodes'
+    utilization and two node-mask flips. Every delta cycle is bitwise a
+    fresh engine's full-upload schedule_batch (scores and masks
+    included); after each delta the retained snapshot and layout are
+    bitwise a fresh upload's and build_fused_layout's; the fold (the
+    engine's resident front half, on a second engine that follows the
+    same epochs) runs under torch.cuda.set_sync_debug_mode("error").
+    Then an epoch gap and invalidate_resident flush to full uploads,
+    schedule_windows_resident over the backlog equals schedule_windows,
+    and schedule_batch_fleet with two elements equals two schedule_batch
+    calls. Host-to-device bytes per cycle come from the port's upload
+    points (device.transfers), cross-checked with torch.profiler on one
+    delta cycle; wall ms per cycle against a full-upload cycle of the
+    same window. Returns the kernel launches of the resident runs."""
+    TorchEngine, transfers = port["TorchEngine"], port["transfers"]
+    nbytes_of = port["snapshot_nbytes"]
+    fused = port["fused"]
+    host0 = type(snap)(*[t.cpu().numpy() for t in snap])
+    backlog = type(pods)(*[f[: WINDOW * N_WINDOWS].cpu().numpy() for f in pods])
+    windows = [type(pods)(*[f[c * WINDOW:(c + 1) * WINDOW] for f in backlog])
+               for c in range(N_WINDOWS)]
+    n_nodes = host0.allocatable.shape[0]
+    launches = {}
+    for name, kw in (("auction", SLICE_KW), ("greedy", GREEDY_KW)):
+        rng = np.random.default_rng(12)
+        engine, audit = TorchEngine(), TorchEngine()
+        torch.cuda.synchronize()
+        fused.reset_launches()
+        prev, epoch = host0, 1
+        res = engine.schedule_resident(prev, windows[0], epoch=epoch, **kw)
+        audit._resident_dispatch(prev, None, epoch, dict(kw))
+        if engine.resident_used_delta:
+            fail(f"resident {name}: the first call did not upload in full")
+        delta_ms, full_ms, delta_bytes, full_bytes, bound_bytes, placed = [], [], [], [], [], []
+        for c in range(N_WINDOWS):
+            new, n_placed = next_host_snapshot(prev, res.free_after, rng)
+            delta = snapshot_delta_np(port, prev, new)
+            epoch += 1
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, _ = audit._resident_dispatch(new, delta, epoch, dict(kw))
+            except RuntimeError as e:
+                fail(f"resident {name}: the delta fold synchronised with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not audit.resident_used_delta:
+                fail(f"resident {name}: the audit engine did not fold delta {c}")
+            port["reset_transfers"]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.schedule_resident(new, windows[c], delta=delta, epoch=epoch, **kw)
+            torch.cuda.synchronize()
+            delta_ms.append((time.perf_counter() - t0) * 1e3)
+            delta_bytes.append(transfers["h2d_bytes"])
+            bound_bytes.append(nbytes_of(delta) + nbytes_of(windows[c]))
+            placed.append(n_placed)
+            if not engine.resident_used_delta:
+                fail(f"resident {name}: delta cycle {c} uploaded in full")
+            # a full-upload cycle of the same window, timed the same way
+            full = TorchEngine()
+            port["reset_transfers"]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = full.schedule_resident(new, windows[c], epoch=epoch, **kw)
+            torch.cuda.synchronize()
+            full_ms.append((time.perf_counter() - t0) * 1e3)
+            full_bytes.append(transfers["h2d_bytes"])
+            fresh = TorchEngine().schedule_batch(new, windows[c], **kw)
+            if not (same_tuple(torch, res, fresh) and same_tuple(torch, want, fresh)):
+                fail(f"resident {name}: delta cycle {c} differs from a full upload")
+            if delta_bytes[-1] > bound_bytes[-1]:
+                fail(f"resident {name}: delta cycle {c} moved {delta_bytes[-1]} B to the "
+                     f"card, above the delta's and window's {bound_bytes[-1]} B")
+            upload = port["make_snapshot"](**new._asdict(), device=snap.node_mask.device)
+            layout = port["build_fused_layout"](upload)
+            for eng in (engine, audit):
+                st = eng._resident
+                if not (same_tuple(torch, st.snapshot, upload)
+                        and same_tuple(torch, st.layout, layout)):
+                    fail(f"resident {name}: the retained state after delta {c} differs "
+                         f"from a fresh upload and build_fused_layout")
+            prev = new
+        # torch.profiler's view of a delta cycle's host-to-device copies: two
+        # more delta cycles, the first the profiler's warm-up
+        state = {"prev": prev, "epoch": epoch, "res": res}
+
+        def delta_cycle():
+            new, _ = next_host_snapshot(state["prev"], state["res"].free_after, rng)
+            delta = snapshot_delta_np(port, state["prev"], new)
+            state["epoch"] += 1
+            port["reset_transfers"]()
+            state["res"] = engine.schedule_resident(new, windows[0], delta=delta,
+                                                    epoch=state["epoch"], **kw)
+            state["prev"], state["bound"] = new, nbytes_of(delta) + nbytes_of(windows[0])
+
+        prof_bytes, prof_copies, memcpy_names = profiled_h2d_bytes(torch, delta_cycle)
+        counted = transfers["h2d_bytes"]
+        prev, epoch, res = state["prev"], state["epoch"], state["res"]
+        if prof_bytes is not None and prof_bytes > state["bound"]:
+            fail(f"resident {name}: the profiler saw {prof_bytes} B host-to-device in a "
+                 f"delta cycle, above the delta's and window's {state['bound']} B")
+        # an epoch gap flushes to a full upload, and so does invalidate_resident
+        trail = []
+        for step in ("gap", "invalidate"):
+            new, _ = next_host_snapshot(prev, res.free_after, rng)
+            delta = snapshot_delta_np(port, prev, new)
+            epoch += 2 if step == "gap" else 1
+            if step == "invalidate":
+                engine.invalidate_resident()
+            res = engine.schedule_resident(new, windows[1], delta=delta, epoch=epoch, **kw)
+            trail.append(engine.resident_used_delta)
+            if not same_tuple(torch, res, TorchEngine().schedule_batch(new, windows[1], **kw)):
+                fail(f"resident {name}: the {step} flush differs from a full upload")
+            prev = new
+        if any(trail):
+            fail(f"resident {name}: an epoch gap or invalidate_resident folded a delta")
+        # the resident backlog, then a fleet dispatch of two elements
+        new, _ = next_host_snapshot(prev, res.free_after, rng)
+        delta = snapshot_delta_np(port, prev, new)
+        epoch += 1
+        pods_w = port["stack_windows"](backlog, WINDOW)
+        t0 = time.perf_counter()
+        out = engine.schedule_windows_resident(new, pods_w, delta=delta, epoch=epoch, **kw)
+        torch.cuda.synchronize()
+        backlog_ms = (time.perf_counter() - t0) * 1e3
+        if not (engine.resident_used_delta and same_tuple(
+                torch, out, TorchEngine().schedule_windows(new, pods_w, **kw))):
+            fail(f"resident {name}: schedule_windows_resident differs from schedule_windows")
+        upload = port["make_snapshot"](**new._asdict(), device=snap.node_mask.device)
+        if not same_tuple(torch, engine._resident.snapshot, upload):
+            fail(f"resident {name}: the backlog wrote into the retained snapshot")
+        other, _ = next_host_snapshot(new, out.free_after, rng)
+        el_delta = snapshot_delta_np(port, new, other)
+        got = engine.schedule_batch_fleet(new, ((None, windows[2]), (el_delta, windows[3])),
+                                          **kw)
+        want = (TorchEngine().schedule_batch(new, windows[2], **kw),
+                TorchEngine().schedule_batch(other, windows[3], **kw))
+        if not all(same_tuple(torch, g, w) for g, w in zip(got, want)):
+            fail(f"resident {name}: schedule_batch_fleet differs from schedule_batch")
+        torch.cuda.synchronize()
+        launches[name] = dict(fused.launches)
+        want_k = ("masked_score", "row_stats", "auction_bid" if name == "auction"
+                  else "greedy_scan")
+        if any(launches[name][k] <= 0 for k in want_k):
+            fail(f"resident {name}: kernels {want_k} not all launched: {launches[name]}")
+        emit({"phase": f"resident_{name}", "config": "gpu-10kx10k", "nodes": n_nodes,
+              "window": WINDOW, "delta_cycles": N_WINDOWS,
+              "delta_cycle_ms": statistics.median(delta_ms), "delta_cycle_ms_runs": delta_ms,
+              "full_upload_cycle_ms": statistics.median(full_ms),
+              "full_upload_cycle_ms_runs": full_ms,
+              "h2d_bytes_delta_cycle": statistics.median(delta_bytes),
+              "h2d_bytes_delta_cycle_runs": delta_bytes,
+              "h2d_bytes_full_upload_cycle": statistics.median(full_bytes),
+              "bytes_bound_delta_plus_window": bound_bytes,
+              "snapshot_nbytes": nbytes_of(host0), "window_nbytes": nbytes_of(windows[0]),
+              "nodes_placed_per_cycle": placed,
+              "profiled_h2d_bytes_delta_cycle": prof_bytes,
+              "profiled_h2d_copies": prof_copies, "counted_h2d_bytes_same_cycle": counted,
+              "profiled_memcpy_names": memcpy_names,
+              "profiler_matches_count": prof_bytes == counted,
+              "flush_trail": trail, "resident_backlog_ms": backlog_ms,
+              "launches": launches[name], "fold_host_syncs_detected": 0,
+              "equal_to_full_upload": True})
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-tree", default=None,
-                    help="a checkout of commit e09185f: time its K1 and K2 beside this tree's")
+                    help="a checkout of an earlier commit (e09185f or later): time its "
+                         "K1, K2 and K4 beside this tree's")
     args = ap.parse_args()
     try:
         import torch
@@ -1410,13 +1776,20 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this run needs a CUDA card")
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
+        from kubernetes_scheduler_tpu_torch.device import reset_transfers, transfers
         from kubernetes_scheduler_tpu_torch.engine import (
+            DOMAIN_TABLES,
             NORMALIZERS,
             POLICIES,
+            UTIL_SERIES,
+            SnapshotDelta,
+            build_fused_layout,
             compute_free_capacity,
             compute_soft_scores,
             fused_score_operands,
             make_affinity_state,
+            make_snapshot,
+            snapshot_nbytes,
         )
         from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
         from kubernetes_scheduler_tpu_torch.ops.assign import (
@@ -1440,6 +1813,10 @@ def main() -> None:
         assign=assign, pad_pod_batch=pad_pod_batch,
         make_affinity_state=make_affinity_state, POLICIES=POLICIES,
         NORMALIZERS=NORMALIZERS, compute_soft_scores=compute_soft_scores,
+        UTIL_SERIES=UTIL_SERIES, DOMAIN_TABLES=DOMAIN_TABLES, SnapshotDelta=SnapshotDelta,
+        snapshot_nbytes=snapshot_nbytes, make_snapshot=make_snapshot,
+        build_fused_layout=build_fused_layout, transfers=transfers,
+        reset_transfers=reset_transfers,
     )
 
     # ---- 1. device -------------------------------------------------------
@@ -1517,7 +1894,12 @@ def main() -> None:
     run_wide(torch, port, dev)
     emit({"phase": "wide_selectors_seconds", "seconds": time.perf_counter() - t0})
 
-    # ---- 12. the kernels line and the result ----------------------------
+    # ---- 12. resident cluster state ---------------------------------------
+    t0 = time.perf_counter()
+    resident = run_resident(torch, port, snap, pods)
+    emit({"phase": "resident_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 13. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -1533,6 +1915,7 @@ def main() -> None:
             "parity": "bitwise", "case": MAIN_CASE[name],
             "main_path": f"{MAIN_PATH[name]} backlog",
             "multi_scorer_launches": {k: v[name] for k, v in multi.items()},
+            "resident_launches": {k: v[name] for k, v in resident.items()},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

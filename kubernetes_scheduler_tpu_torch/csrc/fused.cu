@@ -533,6 +533,34 @@ __device__ __forceinline__ bool bid_better(float val, int col, float best,
   return val > best || (val == best && col < best_col);
 }
 
+// K4's value order: a NaN ranks above every number, +inf included, and two
+// NaN are equal (torch.argmax's and jnp.argmax's rule). K3 never sees a
+// NaN (auction_values zeroes a row whose bounds are not finite).
+//
+// val ranks above a NUMBER best exactly when !(val <= best): greater, or
+// NaN (one unordered compare). Nothing ranks above a NaN, so a loop whose
+// bound only rises keeps "the bound is a number" as a flag and tests
+// `open && above_number(x, bound)`.
+__device__ __forceinline__ bool above_number(float val, float best) {
+  return !(val <= best);
+}
+
+// K4's total order on (value, column) cells: the value as above, then,
+// among equal values (NaN among NaN too), the smaller column.
+__device__ __forceinline__ bool greedy_better(float val, int col, float best,
+                                              int best_col) {
+  const bool vn = val != val;
+  const bool bn = best != best;
+  if (vn | bn) return vn & (!bn | (col < best_col));
+  return val > best || (val == best && col < best_col);
+}
+
+// A cell qualifies for K4 unless its value is <= NEG/2, so a NaN does
+// (the reference's XLA scan body: feasible & cap_ok, NaN included).
+__device__ __forceinline__ bool greedy_qualifies(float x) {
+  return !(x <= kNegHalf);
+}
+
 // Capacity for every requested resource of one node (cap[col * r + k]);
 // an unrequested resource never excludes a node.
 __device__ __forceinline__ bool fits(const float* q, const float* cap,
@@ -627,10 +655,13 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 
 // K4: the greedy scan over pods in scan (priority) order, replacing
 // fused_greedy_scan (pallas_fused.py:476, body _greedy_kernel :421). Pod i
-// takes the first column of the row maximum of sj over cells with
-// sj > NEG/2 and capacity for every requested resource under the capacity
-// the pods before it left; its request is subtracted from that one column
-// (__fsub_rn). picks[i] = -1, and nothing changes, when no cell qualifies.
+// takes the first cell, under greedy_better's order, of the cells that are
+// not <= NEG/2 and have capacity for every requested resource under the
+// capacity the pods before it left; its request is subtracted from that
+// one column (__fsub_rn). picks[i] = -1, and nothing changes, when no cell
+// qualifies. A NaN cell qualifies and ranks above every number, the first
+// NaN first: the rule of the reference's XLA scan body (feasible & cap_ok,
+// then jnp.argmax), which is what the reference runs off the TPU.
 //
 // Bound on the H100: bytes. sj is read once, p * n * 4 B (1,024 x 10,000
 // on the main path: about 41 MB, about 12 us at 3.35 TB/s). The carry
@@ -638,10 +669,10 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 // columns earlier pods took, so the scan is split in two launches:
 //
 // 1. greedy_lists_kernel, one block per row on every SM: each row's
-//    candidate list, its qualifying cells (sj > NEG/2 and capacity under
-//    free0) in the order "greater value, then smaller column", as (value,
-//    column) pairs: up to kListLen = 256 of them, of which the first `cnt`
-//    are known to be the row's first `cnt` qualifying cells.
+//    candidate list, its qualifying cells (not <= NEG/2, and capacity under
+//    free0) in greedy_better's order, as (value, column) pairs: up to
+//    kListLen = 256 of them, of which the first `cnt` are known to be the
+//    row's first `cnt` qualifying cells.
 // 2. greedy_pass_kernel, one block: warp 0 walks the pods in order. Pod i
 //    tests its list against the current `free`, 32 entries at a time, one
 //    per lane; the first entry that still fits is the pick.
@@ -652,7 +683,9 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 // The cells pod i can take at its turn are therefore a subset of those it
 // could take under free0, and every cell ranked above the first listed
 // one that still fits either never qualified or is an earlier entry that
-// no longer fits. When no entry fits and the list holds every qualifying
+// no longer fits. None of this uses more of the order than that it is a
+// fixed total order on cells, so it holds under greedy_better's, NaN
+// included. When no entry fits and the list holds every qualifying
 // cell of the row, nothing qualifies: the pick is -1. Otherwise (the list
 // is "full") the whole block scans the row under the current `free`, over
 // the cells ranked after the list's last entry only (the fallback; ties at
@@ -671,6 +704,12 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 // pods, and __syncwarp / __syncthreads make the write visible. Pods whose
 // list decides never stop the other 31 warps, which wait at the barrier
 // until warp 0 meets a pod that needs the block's row scan.
+//
+// The NaN order costs the hot loops one unordered compare each: a value
+// ranks above a number bound exactly when !(x <= bound), and a flag
+// records a bound that became NaN (then nothing ranks above it). The
+// row scan is one loop per restriction (none; after a NaN entry; after a
+// number, where no NaN can follow), chosen once per pod.
 constexpr int kListThreads = 256;
 constexpr int kListWarps = kListThreads / 32;
 constexpr int kListLen = kListWarps * 32;    // ops/fused.GREEDY_LIST_LEN
@@ -681,12 +720,12 @@ constexpr int kPassWarps = kPassThreads / 32;  // one per lane of warp 0
 constexpr int kBatches = kListLen / 32;      // list entries per lane
 constexpr int kScanUnroll = 4;               // row scan: 16-byte loads in flight
 
-// Insert (v, c) into a warp's list, one entry per lane in bid_better order
+// Insert (v, c) into a warp's list, one entry per lane in greedy_better order
 // (lane 0 the best; empty entries are (-inf, INT_MAX)); the last entry
 // drops out. A no-op when all 32 entries rank above (v, c).
 __device__ __forceinline__ void list_insert(float& lv, int& lc, float v,
                                             int c, int lane) {
-  const int pos = __popc(__ballot_sync(kFull, bid_better(lv, lc, v, c)));
+  const int pos = __popc(__ballot_sync(kFull, greedy_better(lv, lc, v, c)));
   const float up_v = __shfl_up_sync(kFull, lv, 1);
   const int up_c = __shfl_up_sync(kFull, lc, 1);
   if (lane == pos) {
@@ -740,16 +779,25 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
     float lv = neg_inf;  // this lane's entry of the warp's list
     int lc = INT_MAX;
     float thr = neg_inf;  // the list's last value
+    bool thr_open = true;  // thr is a number
     int j = warp * kChunk + 4 * lane;
     float4 ahead = j < n ? load4<kVec>(row, j, n, kNeg) : fill;
     for (int base = warp * kChunk; base < n; base += kStride, j += kStride) {
       const float4 x = ahead;
       ahead = j + kStride < n ? load4<kVec>(row, j + kStride, n, kNeg) : fill;
       unsigned pend = 0;
-      if (x.x > kNegHalf && x.x > thr && fits(s_req, free0, j, r)) pend |= 1u;
-      if (x.y > kNegHalf && x.y > thr && fits(s_req, free0, j + 1, r)) pend |= 2u;
-      if (x.z > kNegHalf && x.z > thr && fits(s_req, free0, j + 2, r)) pend |= 4u;
-      if (x.w > kNegHalf && x.w > thr && fits(s_req, free0, j + 3, r)) pend |= 8u;
+      if (thr_open && greedy_qualifies(x.x) && above_number(x.x, thr) &&
+          fits(s_req, free0, j, r))
+        pend |= 1u;
+      if (thr_open && greedy_qualifies(x.y) && above_number(x.y, thr) &&
+          fits(s_req, free0, j + 1, r))
+        pend |= 2u;
+      if (thr_open && greedy_qualifies(x.z) && above_number(x.z, thr) &&
+          fits(s_req, free0, j + 2, r))
+        pend |= 4u;
+      if (thr_open && greedy_qualifies(x.w) && above_number(x.w, thr) &&
+          fits(s_req, free0, j + 3, r))
+        pend |= 8u;
       for (unsigned who = __ballot_sync(kFull, pend != 0); who != 0;
            who = __ballot_sync(kFull, pend != 0)) {
         const int src = __ffs(who) - 1;
@@ -761,6 +809,7 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
         list_insert(lv, lc, v, c, lane);
       }
       thr = __shfl_sync(kFull, lv, 31);
+      thr_open = thr == thr;  // a list ending in a NaN admits no candidate
     }
     s_lv[t] = lv;
     s_lc[t] = lc;
@@ -770,7 +819,8 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
       int bc = INT_MAX;
       for (int w = 0; w < kListWarps; ++w) {
         const int last = 32 * w + 31;
-        if (s_lc[last] != INT_MAX && bid_better(s_lv[last], s_lc[last], bv, bc)) {
+        if (s_lc[last] != INT_MAX &&
+            greedy_better(s_lv[last], s_lc[last], bv, bc)) {
           bv = s_lv[last];
           bc = s_lc[last];
         }
@@ -787,7 +837,7 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
         if (o < d) {
           const float uv = s_lv[u];
           const int uc = s_lc[u];
-          if (bid_better(uv, uc, s_lv[t], s_lc[t])) {
+          if (greedy_better(uv, uc, s_lv[t], s_lc[t])) {
             s_lv[u] = s_lv[t];
             s_lc[u] = s_lc[t];
             s_lv[t] = uv;
@@ -923,38 +973,55 @@ __global__ void __launch_bounds__(kPassThreads) greedy_pass_kernel(
     const float* row = sj + (size_t)i * n;
     float best = __int_as_float(0xff800000);  // -inf
     int best_col = INT_MAX;
-    auto cell = [&](float x, int col) {
-      if (x > kNegHalf && x > best &&  // columns ascend: first max kept
-          (!after || bid_better(last_val, last_col, x, col)) &&
-          fits(s_req, fr, col, r)) {
-        best = x;
-        best_col = col;
+    bool open = true;  // best is a number: a NaN best is never beaten
+    // The row's cells that qualify, fit, and pass ranked_after(x, col), in
+    // ascending columns per thread (float4 groups t, t + T, ... with
+    // T = blockDim.x, kScanUnroll loads in flight before any is compared),
+    // so the first of equal values (and of NaN) is kept.
+    auto scan = [&](auto ranked_after) {
+      auto cell = [&](float x, int col) {
+        if (open && greedy_qualifies(x) && above_number(x, best) &&
+            ranked_after(x, col) && fits(s_req, fr, col, r)) {
+          best = x;
+          best_col = col;
+          open = x == x;
+        }
+      };
+      const int groups = (n + 3) / 4;
+      for (int g0 = threadIdx.x; g0 < groups; g0 += kScanUnroll * blockDim.x) {
+        float4 x[kScanUnroll];
+#pragma unroll
+        for (int u = 0; u < kScanUnroll; ++u) {
+          const int g = g0 + u * blockDim.x;
+          x[u] = g < groups ? load4<kVec>(row, 4 * g, n, kNeg)
+                            : make_float4(kNeg, kNeg, kNeg, kNeg);
+        }
+#pragma unroll
+        for (int u = 0; u < kScanUnroll; ++u) {
+          const int j = 4 * (g0 + u * blockDim.x);
+          cell(x[u].x, j);
+          cell(x[u].y, j + 1);
+          cell(x[u].z, j + 2);
+          cell(x[u].w, j + 3);
+        }
       }
     };
-    // thread t: float4 groups t, t + T, ... (T = blockDim.x), kScanUnroll
-    // loads in flight before any is compared; its columns ascend
-    const int groups = (n + 3) / 4;
-    for (int g0 = threadIdx.x; g0 < groups; g0 += kScanUnroll * blockDim.x) {
-      float4 x[kScanUnroll];
-#pragma unroll
-      for (int u = 0; u < kScanUnroll; ++u) {
-        const int g = g0 + u * blockDim.x;
-        x[u] = g < groups ? load4<kVec>(row, 4 * g, n, kNeg)
-                          : make_float4(kNeg, kNeg, kNeg, kNeg);
-      }
-#pragma unroll
-      for (int u = 0; u < kScanUnroll; ++u) {
-        const int j = 4 * (g0 + u * blockDim.x);
-        cell(x[u].x, j);
-        cell(x[u].y, j + 1);
-        cell(x[u].z, j + 2);
-        cell(x[u].w, j + 3);
-      }
+    // the cells ranked after the list's last entry, in greedy_better's
+    // order, one specialised loop per case (`after` and the entry are
+    // uniform across the block)
+    if (!after) {
+      scan([](float, int) { return true; });
+    } else if (last_val != last_val) {  // after a NaN: numbers, later NaN
+      scan([&](float x, int col) { return x == x || col > last_col; });
+    } else {  // after a number: never a NaN (bid_better is false for one)
+      scan([&](float x, int col) {
+        return bid_better(last_val, last_col, x, col);
+      });
     }
     for (int off = 16; off > 0; off >>= 1) {
       const float o_val = __shfl_down_sync(kFull, best, off);
       const int o_col = __shfl_down_sync(kFull, best_col, off);
-      if (bid_better(o_val, o_col, best, best_col)) {
+      if (greedy_better(o_val, o_col, best, best_col)) {
         best = o_val;
         best_col = o_col;
       }
@@ -970,7 +1037,7 @@ __global__ void __launch_bounds__(kPassThreads) greedy_pass_kernel(
       for (int off = 16; off > 0; off >>= 1) {
         const float o_val = __shfl_down_sync(kFull, best, off);
         const int o_col = __shfl_down_sync(kFull, best_col, off);
-        if (bid_better(o_val, o_col, best, best_col)) {
+        if (greedy_better(o_val, o_col, best, best_col)) {
           best = o_val;
           best_col = o_col;
         }

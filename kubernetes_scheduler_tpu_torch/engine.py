@@ -20,19 +20,26 @@ evaluates those families outside K1. The types mirror the reference's
 NamedTuples field for field, with torch tensors as leaves on one
 explicit device.
 
-Ported: every option of the reference's schedule_batch except `layout`
-(resident kernel-layout buffers), which raises NotImplementedError
-naming the ROADMAP item that adds it.
+Resident state: TorchEngine retains the cluster snapshot on the device
+(schedule_resident, schedule_windows_resident, schedule_batch_fleet) and
+folds a SnapshotDelta's changed rows into it in place, with the kernels'
+node operands kept beside it as a FusedLayout (schedule_batch(layout=)).
+
+Ported: every option of the reference's schedule_batch and LocalEngine's
+surface but `preempt`, which raises NotImplementedError naming the
+ROADMAP item that adds it.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from kubernetes_scheduler_tpu_torch.device import resolve_device
+from kubernetes_scheduler_tpu_torch.device import resolve_device, to_device
 from kubernetes_scheduler_tpu_torch.ops.assign import (
     NEG,
     AffinityState,
@@ -73,7 +80,11 @@ from kubernetes_scheduler_tpu_torch.ops.score import (
     image_locality,
     least_allocated,
 )
-from kubernetes_scheduler_tpu_torch.ops.stats import utilization_stats
+from kubernetes_scheduler_tpu_torch.ops.stats import (
+    CPU_DIVISOR,
+    DISK_IO_DIVISOR,
+    utilization_stats,
+)
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 
@@ -181,10 +192,14 @@ _NP_DTYPES = {_F32: np.float32, _I32: np.int32, _BOOL: np.bool_}
 
 def as_leaf(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """One array-like leaf (numpy, list, scalar or tensor) as a tensor of
-    `dtype` on `device`; other inputs convert (and copy) on the host first."""
+    `dtype` on `device`. A tensor already there in that dtype is returned
+    as it is; host data converts on the host and uploads through
+    device.to_device (a private copy)."""
     if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu" and device.type != "cpu":
+            return to_device(x.to(dtype), device)
         return x.to(device=device, dtype=dtype)
-    return torch.from_numpy(np.array(x, dtype=_NP_DTYPES[dtype])).to(device)
+    return to_device(np.asarray(x, dtype=_NP_DTYPES[dtype]), device)
 
 
 def _shape(x) -> tuple:
@@ -362,6 +377,215 @@ class WindowsResult(NamedTuple):
     node_idx: torch.Tensor    # [w, p] int32 per-window assignments
     free_after: torch.Tensor  # [n, r] free capacity after the last window
     n_assigned: torch.Tensor  # [] int32 total across windows
+
+
+# ---- resident state: deltas and the kernel layout ---------------------------
+
+
+class SnapshotDelta(NamedTuple):
+    """Cycle-over-cycle change to a retained SnapshotArrays (reference:
+    engine.SnapshotDelta): changed rows BY VALUE (set, never add, so a
+    folded snapshot is bitwise the one a full upload would give). Leaves
+    are numpy arrays or tensors.
+
+    Row index arrays are bucket-padded with the sentinel n (the node
+    axis length), which the folds drop, as the reference's scatter with
+    mode="drop" does. Only the leaves that change in steady state ride a
+    delta: `requested` rows, the five utilization series, the four float
+    domain-count tables and the node mask; any other change makes the
+    host send a full upload."""
+
+    req_rows: object   # [k] int32 changed `requested` rows; pad = n
+    req_vals: object   # [k, r] float32 full new row contents
+    util_rows: object  # [j] int32 changed utilization rows; pad = n
+    # [j, 5] float32 columns: disk_io, cpu_pct, mem_pct, net_up, net_down
+    util_vals: object
+    dom_rows: object   # [d] int32 changed domain-table rows; pad = n
+    # [d, S, 4] float32 stacked columns: domain_counts, avoid_counts,
+    # pref_attract, pref_avoid
+    dom_vals: object
+    node_mask: object  # [n] bool, shipped whole every delta
+
+
+UTIL_SERIES = ("disk_io", "cpu_pct", "mem_pct", "net_up", "net_down")
+DOMAIN_TABLES = ("domain_counts", "avoid_counts", "pref_attract", "pref_avoid")
+
+
+class _Rows(NamedTuple):
+    """One row family of a delta on the device, ready for index_copy_."""
+
+    rows: torch.Tensor  # [k] int64
+    vals: torch.Tensor  # [k, ...] float32
+    exact: bool         # every row in [0, n): no sentinel left
+
+
+def _upload_rows(rows, vals, n: int, device: torch.device) -> _Rows:
+    """A delta's row family on `device`. Host rows (numpy or a CPU tensor)
+    are filtered to [0, n) on the host, so only the kept rows cross and
+    nothing is read back; rows already on a card keep their sentinels,
+    which _set_rows then writes to a scratch row."""
+    if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
+        return _Rows(rows.to(device, torch.int64), as_leaf(vals, _F32, device), False)
+    rows = np.asarray(rows)
+    vals = np.asarray(vals, dtype=np.float32)
+    keep = (rows >= 0) & (rows < n)
+    if not keep.all():
+        rows, vals = rows[keep], vals[keep]
+    return _Rows(to_device(rows, device).long(), to_device(vals, device), True)
+
+
+def _set_rows(leaf: torch.Tensor, rows: _Rows, vals: torch.Tensor) -> None:
+    """leaf[rows] = vals in place, dropping rows outside [0, n) (an
+    out-of-range index_copy_ on a card is a device-side assert)."""
+    if rows.exact:
+        leaf.index_copy_(0, rows.rows, vals)
+        return
+    n = leaf.shape[0]
+    ext = torch.cat([leaf, leaf.new_zeros((1,) + tuple(leaf.shape[1:]))])
+    r = rows.rows
+    ext.index_copy_(0, torch.where((r >= 0) & (r < n), r, n), vals)
+    leaf.copy_(ext[:n])
+
+
+class _DeviceDelta(NamedTuple):
+    """A SnapshotDelta uploaded once, shared by the snapshot and layout
+    folds of one resident cycle."""
+
+    req: _Rows
+    util: _Rows
+    dom: _Rows
+    node_mask: torch.Tensor
+
+
+def _upload_delta(delta: SnapshotDelta, n: int, device: torch.device) -> _DeviceDelta:
+    return _DeviceDelta(
+        req=_upload_rows(delta.req_rows, delta.req_vals, n, device),
+        util=_upload_rows(delta.util_rows, delta.util_vals, n, device),
+        dom=_upload_rows(delta.dom_rows, delta.dom_vals, n, device),
+        node_mask=as_leaf(delta.node_mask, _BOOL, device),
+    )
+
+
+def _apply_delta_rows(snapshot: SnapshotArrays, dd: _DeviceDelta) -> SnapshotArrays:
+    """The row folds of apply_snapshot_delta, in place, on an uploaded
+    delta: `requested`, the utilization series and the domain tables get
+    their rows, the node mask its new contents."""
+    _set_rows(snapshot.requested, dd.req, dd.req.vals)
+    for col, name in enumerate(UTIL_SERIES):
+        _set_rows(getattr(snapshot, name), dd.util, dd.util.vals[:, col])
+    for col, name in enumerate(DOMAIN_TABLES):
+        _set_rows(getattr(snapshot, name), dd.dom, dd.dom.vals[:, :, col])
+    snapshot.node_mask.copy_(dd.node_mask)
+    return snapshot
+
+
+def apply_snapshot_delta(snapshot: SnapshotArrays, delta: SnapshotDelta) -> SnapshotArrays:
+    """Fold a SnapshotDelta into the resident snapshot IN PLACE and return
+    it (reference: engine.apply_snapshot_delta, whose donated buffers XLA
+    reuses). Only the delta's rows and the node mask cross to the device;
+    no [n, r] matrix does, and nothing is read back. The snapshot's
+    leaves must be the caller's own: a leaf shared with anyone else
+    (an input tensor, a uniform-constant cache entry) changes for them
+    too."""
+    n = snapshot.node_mask.shape[0]
+    return _apply_delta_rows(snapshot, _upload_delta(delta, n, snapshot.node_mask.device))
+
+
+def apply_snapshot_delta_np(snapshot: SnapshotArrays, delta: SnapshotDelta):
+    """The numpy twin of apply_snapshot_delta (reference:
+    engine.apply_snapshot_delta_np), for a host that keeps the resident
+    state off the device: row sets by value on copies, so the result is
+    bitwise the snapshot a full upload would ship; the input's leaves are
+    not mutated. Returns a new SnapshotArrays with numpy leaves where the
+    delta writes."""
+    n = snapshot.node_mask.shape[0]
+
+    def folded(name, rows, vals):
+        out = np.array(getattr(snapshot, name), np.float32, copy=True)
+        keep = (rows >= 0) & (rows < n)
+        out[rows[keep]] = vals[keep]
+        return out
+
+    rows = np.asarray(delta.req_rows)
+    urows, uvals = np.asarray(delta.util_rows), np.asarray(delta.util_vals, np.float32)
+    drows, dvals = np.asarray(delta.dom_rows), np.asarray(delta.dom_vals, np.float32)
+    return snapshot._replace(
+        requested=folded("requested", rows, np.asarray(delta.req_vals, np.float32)),
+        **{name: folded(name, urows, uvals[:, col]) for col, name in enumerate(UTIL_SERIES)},
+        **{name: folded(name, drows, dvals[:, :, col])
+           for col, name in enumerate(DOMAIN_TABLES)},
+        node_mask=np.asarray(delta.node_mask, bool),
+    )
+
+
+def snapshot_nbytes(nt) -> int:
+    """Total payload bytes of a NamedTuple of numpy arrays or tensors,
+    from shapes and dtypes only (reference: engine.snapshot_nbytes)."""
+    total = 0
+    for a in nt:
+        if isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+        else:
+            total += int(np.prod(a.shape, dtype=np.int64)) * np.dtype(a.dtype).itemsize
+    return total
+
+
+class FusedLayout(NamedTuple):
+    """The resident node operands of K2 and K1 (reference:
+    engine.FusedLayout), retained across resident cycles so that a delta
+    cycle writes only the changed rows into them and skips
+    utilization_stats. The reference keeps prep_node_operands' transposed,
+    tile-padded TPU layout; the port keeps what its kernels take, [n]
+    vectors and row-major [n, r] matrices, field for field:
+
+    - u, v: the reference's node_ft[0, :n] and node_ft[1, :n];
+    - node_mask: node_ft[2, :n] (there 0/1 float32, here bool);
+    - alloc: alloc_t.T[:n];
+    - reqd: reqd_t.T[:n].
+
+    Built by build_fused_layout on a full upload, folded by
+    apply_layout_delta with the same expressions on the same row values,
+    so a resident cycle is bitwise a full upload's."""
+
+    u: torch.Tensor          # [n] float32 disk_io / 50
+    v: torch.Tensor          # [n] float32 cpu_pct / 100
+    node_mask: torch.Tensor  # [n] bool
+    alloc: torch.Tensor      # [n, r] float32, contiguous
+    reqd: torch.Tensor       # [n, r] float32, contiguous
+
+
+def build_fused_layout(snapshot: SnapshotArrays) -> FusedLayout:
+    """FusedLayout of a snapshot, in private tensors (the folds write
+    them in place): u and v as utilization_stats computes them."""
+    stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+    return FusedLayout(
+        u=stats.u, v=stats.v, node_mask=snapshot.node_mask.clone(),
+        alloc=snapshot.allocatable.to(_F32).clone(memory_format=torch.contiguous_format),
+        reqd=snapshot.requested.to(_F32).clone(memory_format=torch.contiguous_format),
+    )
+
+
+def _apply_layout_rows(layout: FusedLayout, dd: _DeviceDelta) -> FusedLayout:
+    """The layout fold of apply_layout_delta, in place, on an uploaded
+    delta: u and v rows are utilization_stats' expressions on the new
+    series values (a division by a device tensor, as ops/stats.py
+    divides: a host scalar divisor would round differently on a card),
+    reqd gets the `requested` rows, node_mask its new contents; alloc
+    never rides a delta."""
+    util = dd.util.vals
+    _set_rows(layout.u, dd.util, util[:, 0] / util.new_full((), DISK_IO_DIVISOR))
+    _set_rows(layout.v, dd.util, util[:, 1] / util.new_full((), CPU_DIVISOR))
+    _set_rows(layout.reqd, dd.req, dd.req.vals)
+    layout.node_mask.copy_(dd.node_mask)
+    return layout
+
+
+def apply_layout_delta(layout: FusedLayout, delta: SnapshotDelta) -> FusedLayout:
+    """Fold a SnapshotDelta into a retained FusedLayout IN PLACE and
+    return it (reference: engine.apply_layout_delta): bitwise what
+    build_fused_layout gives for the folded snapshot."""
+    n = layout.node_mask.shape[0]
+    return _apply_layout_rows(layout, _upload_delta(delta, n, layout.node_mask.device))
 
 
 # ---- options and shared pieces -----------------------------------------
@@ -606,11 +830,18 @@ def _fused_affinity_operands(
 
 
 def fused_score_operands(
-    snapshot: SnapshotArrays, pods: PodBatch, *, include_pod_affinity: bool = True
+    snapshot: SnapshotArrays,
+    pods: PodBatch,
+    *,
+    include_pod_affinity: bool = True,
+    layout: FusedLayout | None = None,
 ) -> dict:
     """Keyword arguments of ops.fused.fused_masked_score for one window:
     the utilization vectors, resources, pod mask, nodeName pins, and the
-    `other` mask (other_fit, plain PyTorch, as in the reference). With
+    `other` mask (other_fit, plain PyTorch, as in the reference). With a
+    resident `layout` the node operands (u, v, node_mask, alloc, reqd)
+    are the layout's and utilization_stats is skipped; the selector
+    operands, `other` and the pod side still come from the snapshot. With
     include_pod_affinity (affinity_aware=False) the count-based selector
     families are evaluated against pre-window counts: on a selector axis
     of up to MAX_FUSED_SELECTORS K1 folds their selector rows and the pod
@@ -618,7 +849,12 @@ def fused_score_operands(
     (count_families_fit) and K1 gets no selector rows. Without it
     (affinity_aware=True) K1 gets no selector rows: the assigners enforce
     those families against live counts."""
-    stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+    if layout is None:
+        stats = utilization_stats(snapshot.disk_io, snapshot.cpu_pct, snapshot.node_mask)
+        layout = FusedLayout(
+            u=stats.u, v=stats.v, node_mask=snapshot.node_mask,
+            alloc=snapshot.allocatable, reqd=snapshot.requested,
+        )
     fold = (
         include_pod_affinity
         and snapshot.domain_counts.shape[1] <= MAX_FUSED_SELECTORS
@@ -632,8 +868,8 @@ def fused_score_operands(
     if include_pod_affinity and not fold:
         other = other & count_families_fit(snapshot, pods)
     return dict(
-        u=stats.u, v=stats.v, node_mask=snapshot.node_mask,
-        alloc=snapshot.allocatable, reqd=snapshot.requested,
+        u=layout.u, v=layout.v, node_mask=layout.node_mask,
+        alloc=layout.alloc, reqd=layout.reqd,
         r_cpu=pods.request[:, 0], r_io=pods.r_io, pod_request=pods.request,
         pod_mask=pod_ok, target_node=pods.target_node,
         other=other.to(_F32),
@@ -647,13 +883,15 @@ def _fused_masked_scores(
     *,
     include_pod_affinity: bool,
     normalizer: str = "none",
+    layout: FusedLayout | None = None,
     _plain: bool = False,
 ) -> torch.Tensor:
     """[p, n] score where feasible, NEG elsewhere, through K2 and K1 (the
     score, resource fit, nodeName pin, the selector families when they
-    fold, and the `other` mask in one kernel pass)."""
+    fold, and the `other` mask in one kernel pass); the node operands from
+    `layout` when one is given."""
     ops = fused_score_operands(
-        snapshot, pods, include_pod_affinity=include_pod_affinity
+        snapshot, pods, include_pod_affinity=include_pod_affinity, layout=layout
     )
     return fused_masked_score(**ops, normalizer=normalizer, _plain=_plain)
 
@@ -759,16 +997,12 @@ def schedule_batch(
     and the auction's rounds run K3 when affinity_aware=False; with
     affinity_aware=True the count-based selector families leave the
     static mask and the assigner enforces them against live in-window
-    counts (plain PyTorch, as the reference's XLA bodies). `layout` (a
-    resident FusedLayout) is not ported: NotImplementedError.
+    counts (plain PyTorch, as the reference's XLA bodies). `layout`: a
+    resident FusedLayout (TorchEngine.schedule_resident), whose node
+    operands K2 and K1 take; consulted on the fused path only.
 
     `_plain=True` runs every kernel's plain PyTorch version instead, on
     any device, to hold the kernel path against it."""
-    if layout is not None:
-        raise NotImplementedError(
-            "a resident FusedLayout is not ported to the PyTorch engine yet: "
-            "ROADMAP queue A, item 5 (resident state and layouts)"
-        )
     if assigner not in ASSIGNERS:
         raise ValueError(f"assigner must be one of {ASSIGNERS}, not {assigner!r}")
     include_pod_affinity = not affinity_aware
@@ -786,7 +1020,7 @@ def schedule_batch(
         check_fused_contract(policy, normalizer)
         raw = norm = _fused_masked_scores(
             snapshot, pods, include_pod_affinity=include_pod_affinity,
-            normalizer=normalizer, _plain=_plain,
+            normalizer=normalizer, layout=layout, _plain=_plain,
         )
         feasible = raw > NEG * 0.5
     else:
@@ -801,6 +1035,33 @@ def schedule_batch(
         auction_rounds=auction_rounds, auction_price_frac=auction_price_frac,
         _plain=_plain,
     )
+
+
+def schedule_batch_fleet(
+    snapshot: SnapshotArrays, requests: tuple, **options
+) -> tuple:
+    """N independent cycles on one shared base snapshot (reference:
+    engine.schedule_batch_fleet, behind the host's shared engine pool):
+    `requests` holds (delta | None, pods) pairs, and each element is
+    scheduled by schedule_batch(**options) against the base with its own
+    delta folded in OUT OF PLACE: the leaves a delta writes are cloned
+    first, so the base is never touched and every element sees exactly
+    the state its own engine would have held. The reference folds each
+    delta in fixed-size chunks (_delta_row_chunks,
+    _apply_delta_rows_chunked) only so that XLA compiles one scatter
+    shape; that fold is a bitwise twin of the unchunked one, and PyTorch
+    compiles nothing, so here it is the one fold of apply_snapshot_delta.
+    No layout is used: each element's delta would invalidate it."""
+    out = []
+    n = snapshot.node_mask.shape[0]
+    written = ("requested", *UTIL_SERIES, *DOMAIN_TABLES, "node_mask")
+    for delta, pods in requests:
+        snap = snapshot
+        if delta is not None:
+            snap = snapshot._replace(**{f: getattr(snapshot, f).clone() for f in written})
+            _apply_delta_rows(snap, _upload_delta(delta, n, snapshot.node_mask.device))
+        out.append(schedule_batch(snap, pods, **options))
+    return tuple(out)
 
 
 def stack_windows(pods: PodBatch, window: int) -> PodBatch:
@@ -887,7 +1148,15 @@ def schedule_windows(
     """Schedule a backlog of windows in one call (reference:
     engine.schedule_windows): a loop over the leading window axis of
     `pods_windows` (see stack_windows), carrying node capacity and
-    domain counts between windows. Options are schedule_batch's."""
+    domain counts between windows. Options are schedule_batch's.
+
+    layout (fused=True only, else ValueError): a resident FusedLayout.
+    Utilization and allocatable do not change within a backlog, so every
+    window reuses its u, v, node_mask and alloc, and takes reqd from the
+    carried `requested` (the reference rebuilds reqd_t with
+    prep_requested); the layout itself is never written."""
+    if layout is not None and not fused:
+        raise ValueError("layout requires fused=True (the kernels' resident node operands)")
 
     def cycle(snap, window):
         return schedule_batch(
@@ -895,31 +1164,316 @@ def schedule_windows(
             normalizer=normalizer, fused=fused, affinity_aware=affinity_aware,
             soft=soft, auction_rounds=auction_rounds,
             auction_price_frac=auction_price_frac,
-            score_plugins=score_plugins, layout=layout, _plain=_plain,
+            score_plugins=score_plugins,
+            layout=None if layout is None else layout._replace(reqd=snap.requested),
+            _plain=_plain,
         )
 
     return run_windows_scan(snapshot, pods_windows, cycle)
 
 
+class ResidentMismatch(RuntimeError):
+    """A SnapshotDelta arrived for resident state this engine does not
+    hold (wrong epoch, shape or layout churn, or no state at all); the
+    caller must re-upload in full (reference: engine.ResidentMismatch)."""
+
+
+class ResidentState:
+    """Device-owned steady-state cluster arrays (reference:
+    engine.ResidentState): the retained snapshot plus the epoch the host
+    tags its deltas with, and the kernel layout, built on the first fused
+    dispatch and then folded in lockstep. The leaves are PRIVATE tensors
+    (never the caller's, never the uniform-constant cache's), because
+    the delta folds write them in place."""
+
+    __slots__ = ("snapshot", "epoch", "layout")
+
+    def __init__(self, snapshot: SnapshotArrays, epoch: int):
+        self.snapshot = snapshot
+        self.epoch = epoch
+        self.layout: FusedLayout | None = None
+
+    def accepts(self, delta: SnapshotDelta, epoch: int) -> bool:
+        """Is `delta` (tagged to produce `epoch`) applicable? The epoch
+        must be the immediate successor and the delta's node, resource and
+        selector axes those of the retained state; anything else is churn
+        that needs a full upload."""
+        snap = self.snapshot
+        return (
+            epoch == self.epoch + 1
+            and tuple(np.shape(delta.node_mask)) == tuple(snap.node_mask.shape)
+            and tuple(np.shape(delta.req_vals)[1:]) == tuple(snap.requested.shape[1:])
+            and np.shape(delta.dom_vals)[1] == snap.domain_counts.shape[1]
+        )
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """The flat bit patterns of a numpy array (unsigned ints of its item
+    size), so that compares are bitwise: -0.0 differs from 0.0, a NaN
+    equals the same NaN."""
+    return np.ascontiguousarray(a).reshape(-1).view(f"u{a.itemsize}")
+
+
+class _UniformDeviceCache:
+    """Device tensors for host leaves that do not need another upload
+    (reference: engine._UniformDeviceCache). Most leaves of a host-built
+    window are uniform defaults (-1 selector pads, zero tolerations,
+    False masks) and many node-side leaves repeat cycle after cycle
+    (allocatable, labels): a uniform leaf maps to one memoised tensor per
+    (field, shape, dtype, value), and a leaf bitwise equal to the last
+    one seen for its field reuses that upload. The cache keeps its own
+    host copy for the compare. Tensors pass through as_leaf. The tensors
+    it hands out are shared: nothing may write them."""
+
+    MAX_ENTRIES = 256
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._cache: dict = {}
+        # field name -> (shape, host bits, device tensor) of the last
+        # non-uniform leaf
+        self._last: dict = {}
+
+    def swap(self, nt):
+        """`nt` (a SnapshotArrays or PodBatch of any NamedTuple type with
+        those fields) as the port's type, every leaf on the device in the
+        dtype make_snapshot / make_pod_batch fix."""
+        kind, dtypes = (
+            (SnapshotArrays, SNAPSHOT_DTYPES) if nt._fields == SnapshotArrays._fields
+            else (PodBatch, POD_DTYPES)
+        )
+        out = []
+        for name, arr in zip(nt._fields, nt):
+            dtype = dtypes[name]
+            if isinstance(arr, torch.Tensor):
+                out.append(as_leaf(arr, dtype, self.device))
+                continue
+            a = np.asarray(arr, dtype=_NP_DTYPES[dtype])
+            bits = _bits(a)
+            if a.size and (bits == bits[0]).all():
+                key = (name, a.shape, a.dtype.str, int(bits[0]))
+                dev = self._cache.get(key)
+                if dev is None:
+                    if len(self._cache) >= self.MAX_ENTRIES:
+                        self._cache.clear()
+                    dev = self._cache[key] = to_device(a, self.device)
+                out.append(dev)
+                continue
+            prev = self._last.get(name)
+            if prev is not None and prev[0] == a.shape and np.array_equal(prev[1], bits):
+                out.append(prev[2])
+                continue
+            dev = to_device(a, self.device)
+            self._last[name] = (a.shape, bits.copy(), dev)
+            out.append(dev)
+        return kind(*out)
+
+
+class PendingSchedule:
+    """Handle of a dispatched cycle (reference: engine.PendingSchedule),
+    the pipelined host loop's async surface: the result's tensors, and a
+    CUDA event recorded on the stream after the dispatch, so the host can
+    do the next cycle's work before it waits. `result()` waits on the
+    event (no wait on the CPU, where the work is done when the call
+    returns). The auction's host loop reads its any-bid flag every
+    CHECK_EVERY rounds, so its dispatch itself waits on the card then."""
+
+    __slots__ = ("_result", "_event")
+
+    def __init__(self, result, event: torch.cuda.Event | None = None):
+        self._result = result
+        self._event = event
+
+    def result(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return self._result
+
+
 class TorchEngine:
-    """In-process engine with LocalEngine's call surface
-    (`schedule_batch(snapshot, pods, **kw)`,
-    `schedule_windows(snapshot, pods_windows, **kw)`), on one device
-    (default cuda; raises without CUDA unless device="cpu" is passed).
-    Each call moves numpy or tensor leaves to the device once, in the
-    dtypes make_snapshot / make_pod_batch fix."""
+    """In-process engine with LocalEngine's call surface, on one device
+    (default cuda; raises without CUDA unless device="cpu" is passed):
+    schedule_batch / schedule_windows / their async twins, and resident
+    cluster state with delta uploads (schedule_resident,
+    schedule_windows_resident, schedule_batch_fleet). Host leaves reach
+    the device through a uniform-constant cache, in the dtypes
+    make_snapshot / make_pod_batch fix; tensors already on the device
+    pass as they are."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        self._consts = _UniformDeviceCache(self.device)
+        # retained cluster state; None until the first full resident upload
+        self._resident: ResidentState | None = None
+        # did the LAST resident call fold a delta (True) or upload in full?
+        self.resident_used_delta = False
+        # the host's trace id for the next call, and the outstanding
+        # profile arm (the next N calls under torch.profiler)
+        self._trace_id = 0
+        self._profile_left = 0
+        self._profile_dir: str | None = None
 
-    def _put(self, snapshot, pods):
-        return (
-            make_snapshot(**snapshot._asdict(), device=self.device),
-            make_pod_batch(**pods._asdict(), device=self.device),
-        )
+    # ---- telemetry context --------------------------------------------
+
+    def set_trace_id(self, trace_id: int, seq: int = -1) -> None:
+        """Span context for the NEXT call (the host cycle's trace id); it
+        names on-demand profile dumps."""
+        self._trace_id = int(trace_id)
+
+    def arm_profile(self, cycles: int, out_dir: str | None = None) -> dict:
+        """Profile the next `cycles` calls under torch.profiler, each into
+        <out_dir>/step-<trace_id> (host.observe.profile_device_step)."""
+        if out_dir is None:
+            out_dir = tempfile.mkdtemp(prefix="yoda-profile-")
+        self._profile_dir = out_dir
+        self._profile_left = int(cycles)
+        return {"armed": self._profile_left, "out_dir": out_dir}
+
+    def _maybe_profile(self, call):
+        if self._profile_left <= 0:
+            return call()
+        from kubernetes_scheduler_tpu_torch.host.observe import profile_device_step
+
+        self._profile_left -= 1
+        tag = "step-%08d" % self._trace_id if self._trace_id else "step-unlabeled"
+        return profile_device_step(call, os.path.join(self._profile_dir, tag))
+
+    def _pending(self, result) -> PendingSchedule:
+        if self.device.type != "cuda":
+            return PendingSchedule(result)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return PendingSchedule(result, event)
+
+    # ---- stateless calls -------------------------------------------------
 
     def schedule_batch(self, snapshot, pods, **kw) -> ScheduleResult:
-        return schedule_batch(*self._put(snapshot, pods), **kw)
+        return self._maybe_profile(
+            lambda: schedule_batch(self._consts.swap(snapshot), self._consts.swap(pods), **kw)
+        )
+
+    def schedule_batch_async(self, snapshot, pods, **kw) -> PendingSchedule:
+        """schedule_batch, returning once the cycle is enqueued."""
+        return self._pending(self.schedule_batch(snapshot, pods, **kw))
 
     def schedule_windows(self, snapshot, pods_windows, **kw) -> WindowsResult:
-        return schedule_windows(*self._put(snapshot, pods_windows), **kw)
+        return self._maybe_profile(
+            lambda: schedule_windows(
+                self._consts.swap(snapshot), self._consts.swap(pods_windows), **kw
+            )
+        )
+
+    # ---- resident cluster state (delta uploads) -----------------------
+
+    def supports_resident(self) -> bool:
+        return True
+
+    def supports_windows_resident(self) -> bool:
+        return True
+
+    def invalidate_resident(self) -> None:
+        """Drop the retained state; the next resident call uploads in full."""
+        self._resident = None
+
+    def _private_snapshot(self, snapshot) -> SnapshotArrays:
+        """`snapshot` on the device in tensors of its own: a leaf that as_leaf
+        would hand back as it is (the caller's tensor) is cloned."""
+        leaves = {}
+        for name, x in zip(SnapshotArrays._fields, snapshot):
+            t = as_leaf(x, SNAPSHOT_DTYPES[name], self.device)
+            if isinstance(x, torch.Tensor) and t.data_ptr() == x.data_ptr():
+                t = t.clone()
+            leaves[name] = t
+        return SnapshotArrays(**leaves)
+
+    def _resident_dispatch(self, snapshot, delta, epoch: int, kw: dict):
+        """The front half shared by every resident call: fold an
+        applicable delta into the retained snapshot and layout (one
+        upload of its rows), else upload `snapshot` in full into private
+        tensors; on the fused path inject the layout, built on first need.
+        Returns (state, kw)."""
+        st = self._resident
+        if delta is not None and st is not None and st.accepts(delta, epoch):
+            dd = _upload_delta(delta, st.snapshot.node_mask.shape[0], self.device)
+            _apply_delta_rows(st.snapshot, dd)
+            if st.layout is not None:
+                _apply_layout_rows(st.layout, dd)
+            st.epoch = epoch
+            self.resident_used_delta = True
+        else:
+            self._resident = st = ResidentState(self._private_snapshot(snapshot), epoch)
+            self.resident_used_delta = False
+        if kw.get("fused"):
+            if st.layout is None:
+                st.layout = build_fused_layout(st.snapshot)
+            kw = dict(kw, layout=st.layout)
+        return st, kw
+
+    def schedule_resident(self, snapshot, pods, *, delta=None, epoch=0, **kw) -> ScheduleResult:
+        """schedule_batch against the retained state. `snapshot` is always
+        the host's full build, the fallback payload; an applicable `delta`
+        (tagged with the retained epoch's successor, same axes) folds in
+        instead, so only its rows cross to the device. Any mismatch
+        degrades to a full upload; `resident_used_delta` says which ran."""
+        st, kw = self._resident_dispatch(snapshot, delta, epoch, kw)
+        return self._maybe_profile(
+            lambda: schedule_batch(st.snapshot, self._consts.swap(pods), **kw)
+        )
+
+    def schedule_resident_async(
+        self, snapshot, pods, *, delta=None, epoch=0, **kw
+    ) -> PendingSchedule:
+        return self._pending(
+            self.schedule_resident(snapshot, pods, delta=delta, epoch=epoch, **kw)
+        )
+
+    def schedule_windows_resident(
+        self, snapshot, pods_windows, *, delta=None, epoch=0, **kw
+    ) -> WindowsResult:
+        """schedule_windows against the retained state, on the same epoch
+        sequence as schedule_resident. The backlog's capacity and count
+        carries stay inside the call: the retained state remains the
+        pre-backlog snapshot, as the host's delta accounting assumes."""
+        st, kw = self._resident_dispatch(snapshot, delta, epoch, kw)
+        return self._maybe_profile(
+            lambda: schedule_windows(st.snapshot, self._consts.swap(pods_windows), **kw)
+        )
+
+    def schedule_batch_fleet(self, snapshot, requests, *, delta=None, epoch=None, **kw) -> tuple:
+        """Coalesced fleet dispatch: every (delta | None, pods) request
+        against the shared base (see the free schedule_batch_fleet). With
+        `epoch` the base rides the resident front half (a delta folds
+        into the retained state, a mismatch uploads in full); with
+        epoch=None the uploaded `snapshot` is not retained. The retained
+        layout is never used: the elements' deltas would invalidate it."""
+        if epoch is None:
+            snap = self._consts.swap(snapshot)
+        else:
+            st, kw = self._resident_dispatch(snapshot, delta, epoch, kw)
+            snap = st.snapshot
+        kw.pop("layout", None)
+        reqs = tuple((d, self._consts.swap(p)) for d, p in requests)
+        return self._maybe_profile(lambda: schedule_batch_fleet(snap, reqs, **kw))
+
+    # ---- capabilities ----------------------------------------------------
+
+    def supports_fused_min_max(self) -> bool:
+        """K1 runs the min-max epilogue with K2's bounds on every device."""
+        return True
+
+    def supports_gangs(self) -> bool:
+        return True
+
+    def preempt(self, snapshot, pods, victims, *, k_cap: int):
+        raise NotImplementedError(
+            "preemption is not ported to the PyTorch engine yet: "
+            "ROADMAP queue A, item 6 (preemption)"
+        )
+
+    def healthy(self) -> bool:
+        return True
+
+    def close(self) -> None:
+        """Release the retained state and the cached device tensors."""
+        self._resident = None
+        self._consts = _UniformDeviceCache(self.device)

@@ -41,7 +41,9 @@ materialized.
 K4 `greedy_scan` replaces `fused_greedy_scan` (pallas_fused.py:476, body
 `_greedy_kernel` :421). The greedy assigner's sequential scan over pods
 in priority order: per pod, the first column of the row maximum over
-cells with sj > NEG/2 and capacity for every requested resource, then
+cells not <= NEG/2 with capacity for every requested resource (a NaN
+cell qualifies and ranks above every number, the first NaN first, as in
+the reference's XLA scan body), then
 the pod's request subtracted from that column only, before the next pod
 reads the free capacity. Bound: the bytes of sj, read once. Design, two
 launches: every row's first qualifying cells under the capacity before
@@ -362,15 +364,18 @@ def auction_bid(sj, price, active, req, free, *, _plain=False):
 def greedy_scan_plain(sj, req, free0):
     """K4's plain version (the reference's scan body without affinity,
     ops/assign.py:321-342): a loop over pods on tensors, with no host read
-    per pod. Subtracting a zero row where no cell was found leaves `free`
-    bitwise unchanged, so the update needs no branch."""
+    per pod. A cell qualifies unless it is <= NEG/2, so a NaN cell does,
+    and argmax ranks it above every number, the first NaN first (the XLA
+    body's feasible & cap_ok, then jnp.argmax). Subtracting a zero row
+    where no cell was found leaves `free` bitwise unchanged, so the update
+    needs no branch."""
     p = sj.shape[0]
     free = free0.clone()
     picks = torch.full((p,), -1, dtype=torch.int32, device=sj.device)
     for i in range(p):
         q = req[i]
         cap_ok = ((q[None, :] <= free) | (q[None, :] == 0)).all(-1)
-        mask = (sj[i] > NEG * 0.5) & cap_ok
+        mask = ~(sj[i] <= NEG * 0.5) & cap_ok
         choice = torch.argmax(torch.where(mask, sj[i], NEG)).view(1)
         found = mask.any()
         picks[i] = torch.where(found, choice[0].to(torch.int32), -1)

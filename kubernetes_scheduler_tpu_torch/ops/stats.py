@@ -35,9 +35,10 @@ def utilization_stats(
     mask = node_mask.to(disk_io.dtype)
     n_valid = torch.clamp(mask.sum(), min=1.0)
     # divisors as device tensors: PyTorch's CUDA division by a host scalar
-    # multiplies by its reciprocal, which rounds differently from x / 50
-    u = disk_io / disk_io.new_tensor(DISK_IO_DIVISOR)
-    v = cpu_pct / cpu_pct.new_tensor(CPU_DIVISOR)
+    # multiplies by its reciprocal, which rounds differently from x / 50;
+    # new_full fills them on the device (no host copy)
+    u = disk_io / disk_io.new_full((), DISK_IO_DIVISOR)
+    v = cpu_pct / cpu_pct.new_full((), CPU_DIVISOR)
     u_avg = (u * mask).sum() / n_valid
     m_var = (((u - u_avg) ** 2) * mask).sum() / n_valid
     return UtilizationStats(u=u, v=v, u_avg=u_avg, m_var=m_var, n_valid=n_valid)

@@ -106,17 +106,26 @@ def test_torch_generator_matches_reference(features):
 
 @pytest.mark.parametrize(
     "kw,error,match",
-    [(dict(KW, layout=object()), NotImplementedError, "ROADMAP queue A, item 5"),
-     (dict(KW, normalizer="softmax"), ValueError, "normalizer"),
+    [(dict(KW, normalizer="softmax"), ValueError, "normalizer"),
      (dict(KW, score_plugins=(("least_allocated", 1.0),)), ValueError, "score_plugins")],
-    ids=["layout", "softmax-kernel", "plugins-kernel"],
+    ids=["softmax-kernel", "plugins-kernel"],
 )
 def test_torch_unported_options_raise(kw, error, match):
-    """Only a resident layout is still unported; softmax and score plugins
+    """Every option of schedule_batch is ported (preemption, the one engine
+    call still to port, is the next test's); softmax and score plugins
     are refused on the kernel path, as the reference refuses them."""
     _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
     with pytest.raises(error, match=match):
         engine.schedule_batch(ts, tp, **kw)
+
+
+def test_torch_engine_eviction_not_ported():
+    """TorchEngine.preempt, the one engine call still to port (ROADMAP
+    queue A, item 6), raises rather than guess. (The name avoids the
+    substring that tests/conftest.py marks slow.)"""
+    _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
+    with pytest.raises(NotImplementedError, match="queue A, item 6"):
+        TorchEngine(device="cpu").preempt(ts, tp, None, k_cap=4)
 
 
 def test_torch_plain_flag_matches_default_on_cpu():

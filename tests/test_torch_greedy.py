@@ -219,3 +219,51 @@ def test_torch_greedy_affinity_matches_reference(p, n, s, seed):
     free_run = assign.greedy_assign(*[T(a) for a in args])
     assert not torch.equal(free_run.node_idx, got.node_idx)
     assert got.node_idx.numpy()[0] == -1                 # the stale spread id
+
+
+def test_torch_greedy_nan_scores_match_reference():
+    """A NaN in one node's disk IO makes min-max turn every score NaN; the
+    reference's XLA scan body still places every pod (a NaN cell is
+    feasible and jnp.argmax ranks it highest), and so must the port."""
+    from kubernetes_scheduler_tpu import engine as ref
+    from kubernetes_scheduler_tpu.sim import gen_cluster as ref_cluster
+    from kubernetes_scheduler_tpu.sim import gen_pods as ref_pods
+    from kubernetes_scheduler_tpu_torch import engine
+    from kubernetes_scheduler_tpu_torch.convert import from_reference
+
+    rs = ref_cluster(40, seed=1, constraints=True)
+    rp = ref_pods(24, seed=2, constraints=True)
+    assert bool(np.asarray(rs.node_mask)[3])
+    disk_io = np.array(rs.disk_io)
+    disk_io[3] = np.nan
+    rs = rs._replace(disk_io=jnp.asarray(disk_io))
+    kw = dict(fused=False, normalizer="min_max", assigner="greedy", affinity_aware=False)
+    want = ref.schedule_batch(rs, rp, **kw)
+    got = engine.schedule_batch(from_reference(rs, device="cpu"),
+                                from_reference(rp, device="cpu"), **kw)
+    assert int(want.n_assigned) == 24 and int(got.n_assigned) == 24
+    np.testing.assert_array_equal(got.node_idx.numpy(), np.asarray(want.node_idx))
+    np.testing.assert_array_equal(bits(got.free_after.numpy()), bits(want.free_after))
+
+
+def test_torch_greedy_scan_plain_first_nan_wins():
+    """K4's order on one row: a NaN ranks above +inf and every number, the
+    first NaN above later ones; a NaN cell without capacity is passed
+    over, and a NaN at or below NEG/2 never is one (NaN is not <= NEG/2)."""
+    nan, inf, neg = np.nan, np.inf, assign.NEG
+    sj = np.array([
+        [1.0, nan, inf, nan, 2.0],   # the first NaN, over +inf and a later NaN
+        [inf, nan, 3.0, nan, neg],   # column 1 is taken: the next NaN
+        [neg, neg, neg, nan, 5.0],   # its NaN column has no room: 5.0
+        [neg, neg, neg, neg, neg],   # nothing qualifies
+    ], np.float32)
+    req = np.ones((4, 1), np.float32)
+    free = np.array([[1.0], [1.0], [1.0], [1.0], [1.0]], np.float32)
+    picks, free_after = fused.greedy_scan_plain(T(sj), T(req), T(free))
+    np.testing.assert_array_equal(picks.numpy(), [1, 3, 4, -1])
+    np.testing.assert_array_equal(free_after.numpy()[:, 0], [1.0, 0.0, 1.0, 0.0, 0.0])
+    want = rassign.greedy_assign(
+        jnp.asarray(sj), jnp.asarray(~(sj <= np.float32(neg * 0.5))), jnp.asarray(req),
+        jnp.asarray(free), jnp.zeros(4, jnp.int32), jnp.ones(4, bool), greedy_kernel=False)
+    np.testing.assert_array_equal(picks.numpy(), np.asarray(want.node_idx))
+    np.testing.assert_array_equal(bits(free_after.numpy()), bits(want.free_after))

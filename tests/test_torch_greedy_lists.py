@@ -14,7 +14,11 @@ takes narrow chunks so that small rows spread over all warps). On seeded
 numpy inputs the model must equal, bitwise, K4's plain version
 (`greedy_scan_plain`, which the kernel equals bitwise on the card:
 chip_smoke.py) and the JAX reference's `fused_greedy_scan` in interpret
-mode.
+mode. The order is the kernel's total order on cells: a NaN ranks above
+every number and among NaN the smaller column first. On the case with
+NaN cells the reference is its XLA scan body (`greedy_assign` with
+greedy_kernel=False, the rule it runs off the TPU), since its Pallas scan
+does not qualify a NaN cell.
 """
 
 import functools
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_scheduler_tpu.ops import assign as rassign
 from kubernetes_scheduler_tpu.ops.pallas_fused import fused_greedy_scan
 from kubernetes_scheduler_tpu_torch.ops import fused
 from kubernetes_scheduler_tpu_torch.ops.assign import NEG
@@ -44,15 +49,22 @@ def cap_ok(q, free):
     return ((q[None, :] <= free) | (q[None, :] == 0)).all(-1)
 
 
+def qualifies(row):
+    """[n] bool: the cells not <= NEG/2 (NaN included)."""
+    return ~(row <= NEG * 0.5)
+
+
 def first_max(row, ok) -> int:
-    """The first column of the row maximum over `ok`, -1 when none."""
+    """The first column of the row maximum over `ok` (the first NaN
+    first), -1 when none."""
     if not bool(ok.any()):
         return -1
     return int(torch.argmax(torch.where(ok, row, NEG)))
 
 
 def ranked(row, cols):
-    """`cols` in the order "greater value, then smaller column"."""
+    """`cols` in the order "greater value (NaN greatest), then smaller
+    column": a stable descending sort puts NaN first, in column order."""
     cols = torch.sort(cols).values
     return cols[torch.sort(row[cols], descending=True, stable=True).indices]
 
@@ -86,7 +98,7 @@ def two_phase_scan(sj, req, free0, warp_len, list_len):
     p, n = sj.shape
     cols = torch.arange(n)
     lists = [
-        candidate_list(sj[i], (sj[i] > NEG * 0.5) & cap_ok(req[i], free0), warp_len, list_len)
+        candidate_list(sj[i], qualifies(sj[i]) & cap_ok(req[i], free0), warp_len, list_len)
         for i in range(p)
     ]
     free = free0.clone()
@@ -95,7 +107,7 @@ def two_phase_scan(sj, req, free0, warp_len, list_len):
     for i in range(p):
         q = req[i]
         exact = exact and not bool(((q < 0) | torch.isnan(q)).any())
-        ok = (sj[i] > NEG * 0.5) & cap_ok(q, free)
+        ok = qualifies(sj[i]) & cap_ok(q, free)
         lst, full = lists[i]
         if not exact:
             pick = first_max(sj[i], ok)
@@ -106,8 +118,12 @@ def two_phase_scan(sj, req, free0, warp_len, list_len):
             pick = -1
         else:
             last = int(lst[-1])
-            v = sj[i, last]
-            after = (sj[i] < v) | ((sj[i] == v) & (cols > last))
+            v, row = sj[i, last], sj[i]
+            later = cols > last
+            if bool(torch.isnan(v)):
+                after = ~torch.isnan(row) | later
+            else:
+                after = (row < v) | ((row == v) & later)
             pick = first_max(sj[i], ok & after)
             scans += 1
         if pick >= 0:
@@ -179,6 +195,23 @@ def _r7(rng):
     return sj, req, free
 
 
+def _nan_cells(rng):
+    """NaN cells in several rows (some at a row's columns shared with other
+    rows, so later pods find them taken), a row with NaN and +inf, a NaN
+    cell on a node without capacity, and contended capacity, so lists of
+    one or two entries run out at NaN cells."""
+    sj, req, free = _contended(rng)
+    p, n = sj.shape
+    nan_rows = np.arange(0, p, 3)
+    for k, col in enumerate((5, 17, 40)):
+        sj[nan_rows[k::3], col] = np.nan
+    sj[4, [2, 60]] = np.inf
+    sj[4, [30, 70]] = np.nan
+    sj[7, 11] = np.nan
+    free[11] = 0.0      # pod 7's NaN cell has no capacity
+    return sj, req, free
+
+
 def _negative_request(rng):
     """A pod in the first third requests a negative amount, which gives
     capacity back: the subset argument fails and the guard must trip."""
@@ -194,6 +227,7 @@ CASES = {
     "neg-rows-zero-requests": _neg_rows_zero_requests,
     "r7": _r7,
     "negative-request": _negative_request,
+    "nan-cells": _nan_cells,
 }
 
 
@@ -202,6 +236,14 @@ def case_data(name):
     """(sj, req, free0, reference picks, reference free_after) as numpy."""
     seed = sorted(CASES).index(name) + 11
     sj, req, free = CASES[name](np.random.default_rng(seed))
+    if np.isnan(sj).any():
+        p = sj.shape[0]
+        want = rassign.greedy_assign(
+            jnp.asarray(sj), jnp.asarray(~(sj <= np.float32(NEG * 0.5))),
+            jnp.asarray(req), jnp.asarray(free), jnp.zeros(p, jnp.int32),
+            jnp.ones(p, bool), greedy_kernel=False,
+        )
+        return sj, req, free, np.asarray(want.node_idx), np.asarray(want.free_after)
     want_p, want_f = fused_greedy_scan(
         jnp.asarray(sj), jnp.asarray(req), jnp.asarray(free), interpret=True
     )
@@ -221,12 +263,16 @@ def test_torch_greedy_two_phase_model_matches_plain_and_reference(case, lists):
     np.testing.assert_array_equal(bits(free_after.numpy()), bits(want_f))
     assert (picks.numpy() >= 0).any()
     # each case drives the path it was built for
-    if case in ("contended", "boundary-ties") and lists != (32, 256):
+    if case in ("contended", "boundary-ties", "nan-cells") and lists != (32, 256):
         assert scans > 0  # (32, 256) lists hold every qualifying cell here
     if case == "negative-request":
         assert scans >= sj.shape[0] - 9
     if case == "neg-rows-zero-requests":
         assert (picks.numpy()[1::7] == -1).all()
+    if case == "nan-cells":
+        # pod 0 takes its NaN cell, pod 4 its first NaN over +inf, pod 7
+        # no NaN cell (no capacity there)
+        assert picks[0] == 5 and picks[4] == 30 and picks[7] != 11
     if case == "boundary-ties" and lists[0] == 32:
         # the first 64 pods take the 64 tied columns in column order
         np.testing.assert_array_equal(picks.numpy()[:64], np.arange(3, 256, 4))
