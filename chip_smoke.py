@@ -72,9 +72,11 @@ Phases; the first failure exits non-zero and no result line is printed:
    and 8 delta cycles of one 1,024-pod window each, on the auction and
    on greedy, every cycle bitwise a full upload's, the retained snapshot
    and layout bitwise a fresh build's, the delta fold free of host reads,
-   host-to-device bytes and wall ms per delta and per full-upload cycle;
-   epoch-gap and invalidate flushes, the resident backlog and a fleet
-   dispatch, each equal to its non-resident call;
+   host-to-device bytes (equal to the profiler's on a delta cycle) and
+   wall ms per delta and per full-upload cycle (a warm engine uploading in
+   full); epoch-gap and invalidate flushes, the resident backlog and a
+   fleet dispatch, each equal to its non-resident call; K1-K4 launches
+   counted per delta cycle, backlog and fleet call;
 13. the kernels line, then the result line.
 
 Phases 7-12 print their seconds. Timed runs are medians of 3; equality
@@ -463,7 +465,7 @@ def load_parent(build, tree: str) -> ctypes.CDLL:
     lib.ks_masked_score.argtypes = [ptr] * 15 + [num] * 4 + [ptr]
     # alpha, beta, u, v, node_mask, out, p, n, stream
     lib.ks_row_stats.argtypes = [ptr] * 6 + [num] * 2 + [ptr]
-    # sj, req, free0, free_after, picks, list_val, list_col, list_cnt,
+    # sj, req, free0, free_after, picks, list_key, list_col, list_cnt,
     # fallbacks, p, n, r, list_len, stream
     lib.ks_greedy_scan.argtypes = [ptr] * 9 + [num] * 4 + [ptr]
     for fn in (lib.ks_masked_score, lib.ks_row_stats, lib.ks_greedy_scan):
@@ -1608,7 +1610,13 @@ def run_resident(torch, port, snap, pods) -> dict:
     calls. Host-to-device bytes per cycle come from the port's upload
     points (device.transfers), cross-checked with torch.profiler on one
     delta cycle; wall ms per cycle against a full-upload cycle of the
-    same window. Returns the kernel launches of the resident runs."""
+    same window on a second long-lived engine (its uniform-leaf cache as
+    warm as the resident engine's) that uploads the snapshot in full every
+    cycle. The kernel launches are counted per run, set to 0 just before
+    each delta cycle, the resident backlog and the fleet call and read just
+    after: one K1, K2 and K4 (greedy) or at least one K3 (auction) a delta
+    cycle, 8 of each for the backlog, 2 for the fleet. Returns those
+    counts, per path and run."""
     TorchEngine, transfers = port["TorchEngine"], port["transfers"]
     nbytes_of = port["snapshot_nbytes"]
     fused = port["fused"]
@@ -1618,16 +1626,38 @@ def run_resident(torch, port, snap, pods) -> dict:
                for c in range(N_WINDOWS)]
     n_nodes = host0.allocatable.shape[0]
     launches = {}
-    for name, kw in (("auction", SLICE_KW), ("greedy", GREEDY_KW)):
-        rng = np.random.default_rng(12)
-        engine, audit = TorchEngine(), TorchEngine()
+
+    def counted(what, run, calls, auction):
+        """(run(), its launches, its wall ms): the launch counts set to 0
+        just before the run and read just after it. Fails unless K1 and
+        K2 launched `calls` times each, and the path's assigner kernel as
+        often (K4) or at least as often (K3, one launch a round)."""
         torch.cuda.synchronize()
         fused.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(fused.launches)
+        expect_launches(what, got, {
+            "masked_score": calls, "row_stats": calls,
+            "auction_bid": None if auction else 0, "greedy_scan": 0 if auction else calls})
+        if auction and got["auction_bid"] < calls:
+            fail(f"{what}: K3 launched {got['auction_bid']} times, fewer than {calls} cycles")
+        return out, got, ms
+
+    for name, kw in (("auction", SLICE_KW), ("greedy", GREEDY_KW)):
+        rng = np.random.default_rng(12)
+        # `full` uploads the snapshot in full every cycle (no delta): the
+        # baseline, with a uniform-leaf cache as warm as the resident engine's
+        engine, audit, full = TorchEngine(), TorchEngine(), TorchEngine()
         prev, epoch = host0, 1
         res = engine.schedule_resident(prev, windows[0], epoch=epoch, **kw)
+        full.schedule_resident(prev, windows[0], epoch=epoch, **kw)
         audit._resident_dispatch(prev, None, epoch, dict(kw))
         if engine.resident_used_delta:
             fail(f"resident {name}: the first call did not upload in full")
+        delta_launches = dict.fromkeys(fused.launches, 0)
         delta_ms, full_ms, delta_bytes, full_bytes, bound_bytes, placed = [], [], [], [], [], []
         for c in range(N_WINDOWS):
             new, n_placed = next_host_snapshot(prev, res.free_after, rng)
@@ -1644,18 +1674,19 @@ def run_resident(torch, port, snap, pods) -> dict:
             if not audit.resident_used_delta:
                 fail(f"resident {name}: the audit engine did not fold delta {c}")
             port["reset_transfers"]()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = engine.schedule_resident(new, windows[c], delta=delta, epoch=epoch, **kw)
-            torch.cuda.synchronize()
-            delta_ms.append((time.perf_counter() - t0) * 1e3)
+            res, got, ms = counted(
+                f"resident {name} delta cycle {c}",
+                lambda: engine.schedule_resident(new, windows[c], delta=delta, epoch=epoch,
+                                                 **kw), 1, name == "auction")
+            delta_ms.append(ms)
             delta_bytes.append(transfers["h2d_bytes"])
+            for k, v in got.items():
+                delta_launches[k] += v
             bound_bytes.append(nbytes_of(delta) + nbytes_of(windows[c]))
             placed.append(n_placed)
             if not engine.resident_used_delta:
                 fail(f"resident {name}: delta cycle {c} uploaded in full")
             # a full-upload cycle of the same window, timed the same way
-            full = TorchEngine()
             port["reset_transfers"]()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1663,6 +1694,8 @@ def run_resident(torch, port, snap, pods) -> dict:
             torch.cuda.synchronize()
             full_ms.append((time.perf_counter() - t0) * 1e3)
             full_bytes.append(transfers["h2d_bytes"])
+            if full.resident_used_delta:
+                fail(f"resident {name}: the baseline engine folded a delta")
             fresh = TorchEngine().schedule_batch(new, windows[c], **kw)
             if not (same_tuple(torch, res, fresh) and same_tuple(torch, want, fresh)):
                 fail(f"resident {name}: delta cycle {c} differs from a full upload")
@@ -1679,24 +1712,29 @@ def run_resident(torch, port, snap, pods) -> dict:
                          f"from a fresh upload and build_fused_layout")
             prev = new
         # torch.profiler's view of a delta cycle's host-to-device copies: two
-        # more delta cycles, the first the profiler's warm-up
+        # more delta cycles, the first the profiler's warm-up; each takes
+        # another window than the cycle before it, so its leaves cross too
         state = {"prev": prev, "epoch": epoch, "res": res}
 
         def delta_cycle():
             new, _ = next_host_snapshot(state["prev"], state["res"].free_after, rng)
             delta = snapshot_delta_np(port, state["prev"], new)
             state["epoch"] += 1
+            window = windows[state["epoch"] % N_WINDOWS]
             port["reset_transfers"]()
-            state["res"] = engine.schedule_resident(new, windows[0], delta=delta,
+            state["res"] = engine.schedule_resident(new, window, delta=delta,
                                                     epoch=state["epoch"], **kw)
-            state["prev"], state["bound"] = new, nbytes_of(delta) + nbytes_of(windows[0])
+            state["prev"], state["bound"] = new, nbytes_of(delta) + nbytes_of(window)
 
         prof_bytes, prof_copies, memcpy_names = profiled_h2d_bytes(torch, delta_cycle)
-        counted = transfers["h2d_bytes"]
+        counted_bytes = transfers["h2d_bytes"]
         prev, epoch, res = state["prev"], state["epoch"], state["res"]
-        if prof_bytes is not None and prof_bytes > state["bound"]:
+        if prof_bytes != counted_bytes:
             fail(f"resident {name}: the profiler saw {prof_bytes} B host-to-device in a "
-                 f"delta cycle, above the delta's and window's {state['bound']} B")
+                 f"delta cycle ({memcpy_names}), the upload points counted {counted_bytes} B")
+        if counted_bytes > state["bound"]:
+            fail(f"resident {name}: a profiled delta cycle moved {counted_bytes} B to the "
+                 f"card, above the delta's and window's {state['bound']} B")
         # an epoch gap flushes to a full upload, and so does invalidate_resident
         trail = []
         for step in ("gap", "invalidate"):
@@ -1717,10 +1755,10 @@ def run_resident(torch, port, snap, pods) -> dict:
         delta = snapshot_delta_np(port, prev, new)
         epoch += 1
         pods_w = port["stack_windows"](backlog, WINDOW)
-        t0 = time.perf_counter()
-        out = engine.schedule_windows_resident(new, pods_w, delta=delta, epoch=epoch, **kw)
-        torch.cuda.synchronize()
-        backlog_ms = (time.perf_counter() - t0) * 1e3
+        out, backlog_launches, backlog_ms = counted(
+            f"resident {name} backlog",
+            lambda: engine.schedule_windows_resident(new, pods_w, delta=delta, epoch=epoch,
+                                                     **kw), N_WINDOWS, name == "auction")
         if not (engine.resident_used_delta and same_tuple(
                 torch, out, TorchEngine().schedule_windows(new, pods_w, **kw))):
             fail(f"resident {name}: schedule_windows_resident differs from schedule_windows")
@@ -1729,18 +1767,16 @@ def run_resident(torch, port, snap, pods) -> dict:
             fail(f"resident {name}: the backlog wrote into the retained snapshot")
         other, _ = next_host_snapshot(new, out.free_after, rng)
         el_delta = snapshot_delta_np(port, new, other)
-        got = engine.schedule_batch_fleet(new, ((None, windows[2]), (el_delta, windows[3])),
-                                          **kw)
+        got, fleet_launches, _ = counted(
+            f"resident {name} fleet call",
+            lambda: engine.schedule_batch_fleet(
+                new, ((None, windows[2]), (el_delta, windows[3])), **kw), 2, name == "auction")
         want = (TorchEngine().schedule_batch(new, windows[2], **kw),
                 TorchEngine().schedule_batch(other, windows[3], **kw))
         if not all(same_tuple(torch, g, w) for g, w in zip(got, want)):
             fail(f"resident {name}: schedule_batch_fleet differs from schedule_batch")
-        torch.cuda.synchronize()
-        launches[name] = dict(fused.launches)
-        want_k = ("masked_score", "row_stats", "auction_bid" if name == "auction"
-                  else "greedy_scan")
-        if any(launches[name][k] <= 0 for k in want_k):
-            fail(f"resident {name}: kernels {want_k} not all launched: {launches[name]}")
+        launches[name] = {"delta_cycles": delta_launches, "backlog": backlog_launches,
+                          "fleet": fleet_launches}
         emit({"phase": f"resident_{name}", "config": "gpu-10kx10k", "nodes": n_nodes,
               "window": WINDOW, "delta_cycles": N_WINDOWS,
               "delta_cycle_ms": statistics.median(delta_ms), "delta_cycle_ms_runs": delta_ms,
@@ -1753,9 +1789,9 @@ def run_resident(torch, port, snap, pods) -> dict:
               "snapshot_nbytes": nbytes_of(host0), "window_nbytes": nbytes_of(windows[0]),
               "nodes_placed_per_cycle": placed,
               "profiled_h2d_bytes_delta_cycle": prof_bytes,
-              "profiled_h2d_copies": prof_copies, "counted_h2d_bytes_same_cycle": counted,
+              "profiled_h2d_copies": prof_copies,
+              "counted_h2d_bytes_same_cycle": counted_bytes,
               "profiled_memcpy_names": memcpy_names,
-              "profiler_matches_count": prof_bytes == counted,
               "flush_trail": trail, "resident_backlog_ms": backlog_ms,
               "launches": launches[name], "fold_host_syncs_detected": 0,
               "equal_to_full_upload": True})
@@ -1915,7 +1951,8 @@ def main() -> None:
             "parity": "bitwise", "case": MAIN_CASE[name],
             "main_path": f"{MAIN_PATH[name]} backlog",
             "multi_scorer_launches": {k: v[name] for k, v in multi.items()},
-            "resident_launches": {k: v[name] for k, v in resident.items()},
+            "resident_launches": {path: {run: counts[name] for run, counts in runs.items()}
+                                  for path, runs in resident.items()},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -533,32 +533,32 @@ __device__ __forceinline__ bool bid_better(float val, int col, float best,
   return val > best || (val == best && col < best_col);
 }
 
-// K4's value order: a NaN ranks above every number, +inf included, and two
-// NaN are equal (torch.argmax's and jnp.argmax's rule). K3 never sees a
-// NaN (auction_values zeroes a row whose bounds are not finite).
-//
-// val ranks above a NUMBER best exactly when !(val <= best): greater, or
-// NaN (one unordered compare). Nothing ranks above a NaN, so a loop whose
-// bound only rises keeps "the bound is a number" as a flag and tests
-// `open && above_number(x, bound)`.
-__device__ __forceinline__ bool above_number(float val, float best) {
-  return !(val <= best);
+// K4's total order on cells, as one integer: rank(x, col) > rank(y, c)
+// exactly when cell (x, col) comes first. The high word is the value's
+// key: a NaN above every number, +inf included, and -0 equal to +0. The
+// low word puts the smaller column first among equal keys, NaN among NaN
+// too (torch.argmax's and jnp.argmax's rule). No key is 0 (those would be
+// a NaN's bits) and no low word is above INT_MAX, so every rank lies in
+// (0, ~0). A cell qualifies for K4 (its value is not <= NEG/2, so a NaN
+// does: the reference's XLA scan body, feasible & cap_ok) exactly when its
+// key is above qualify_key(). K3 keeps bid_better: it never sees a NaN
+// (auction_values zeroes a row whose bounds are not finite).
+__device__ __forceinline__ unsigned value_key(float x) {
+  const unsigned b = __float_as_uint(__fadd_rn(x, 0.0f));  // -0 + 0 = +0
+  return x != x ? 0xffffffffu : b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
 }
 
-// K4's total order on (value, column) cells: the value as above, then,
-// among equal values (NaN among NaN too), the smaller column.
-__device__ __forceinline__ bool greedy_better(float val, int col, float best,
-                                              int best_col) {
-  const bool vn = val != val;
-  const bool bn = best != best;
-  if (vn | bn) return vn & (!bn | (col < best_col));
-  return val > best || (val == best && col < best_col);
+__device__ __forceinline__ unsigned long long cell_rank(unsigned key,
+                                                        int col) {
+  return ((unsigned long long)key << 32) | (unsigned)(INT_MAX - col);
 }
 
-// A cell qualifies for K4 unless its value is <= NEG/2, so a NaN does
-// (the reference's XLA scan body: feasible & cap_ok, NaN included).
-__device__ __forceinline__ bool greedy_qualifies(float x) {
-  return !(x <= kNegHalf);
+__device__ __forceinline__ int rank_col(unsigned long long k) {
+  return INT_MAX - (int)(unsigned)k;
+}
+
+__device__ __forceinline__ unsigned qualify_key() {
+  return value_key(kNegHalf);
 }
 
 // Capacity for every requested resource of one node (cap[col * r + k]);
@@ -655,7 +655,7 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 
 // K4: the greedy scan over pods in scan (priority) order, replacing
 // fused_greedy_scan (pallas_fused.py:476, body _greedy_kernel :421). Pod i
-// takes the first cell, under greedy_better's order, of the cells that are
+// takes the first cell, under cell_rank's order, of the cells that are
 // not <= NEG/2 and have capacity for every requested resource under the
 // capacity the pods before it left; its request is subtracted from that
 // one column (__fsub_rn). picks[i] = -1, and nothing changes, when no cell
@@ -670,7 +670,7 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 //
 // 1. greedy_lists_kernel, one block per row on every SM: each row's
 //    candidate list, its qualifying cells (not <= NEG/2, and capacity under
-//    free0) in greedy_better's order, as (value, column) pairs: up to
+//    free0) in cell_rank's order, as (key, column) pairs: up to
 //    kListLen = 256 of them, of which the first `cnt` are known to be the
 //    row's first `cnt` qualifying cells.
 // 2. greedy_pass_kernel, one block: warp 0 walks the pods in order. Pod i
@@ -684,7 +684,7 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 // could take under free0, and every cell ranked above the first listed
 // one that still fits either never qualified or is an earlier entry that
 // no longer fits. None of this uses more of the order than that it is a
-// fixed total order on cells, so it holds under greedy_better's, NaN
+// fixed total order on cells, so it holds under cell_rank's, NaN
 // included. When no entry fits and the list holds every qualifying
 // cell of the row, nothing qualifies: the pick is -1. Otherwise (the list
 // is "full") the whole block scans the row under the current `free`, over
@@ -705,11 +705,10 @@ __global__ void __launch_bounds__(kThreads) auction_bid_kernel(
 // list decides never stop the other 31 warps, which wait at the barrier
 // until warp 0 meets a pod that needs the block's row scan.
 //
-// The NaN order costs the hot loops one unordered compare each: a value
-// ranks above a number bound exactly when !(x <= bound), and a flag
-// records a bound that became NaN (then nothing ranks above it). The
-// row scan is one loop per restriction (none; after a NaN entry; after a
-// number, where no NaN can follow), chosen once per pod.
+// Every comparison of cells is one comparison of their ranks: the list
+// insert and merge, the bound B, the row scan (a cell between the running
+// best and the list's last entry) and its reductions; the candidate test
+// compares keys alone, since a warp's columns ascend.
 constexpr int kListThreads = 256;
 constexpr int kListWarps = kListThreads / 32;
 constexpr int kListLen = kListWarps * 32;    // ops/fused.GREEDY_LIST_LEN
@@ -720,19 +719,20 @@ constexpr int kPassWarps = kPassThreads / 32;  // one per lane of warp 0
 constexpr int kBatches = kListLen / 32;      // list entries per lane
 constexpr int kScanUnroll = 4;               // row scan: 16-byte loads in flight
 
-// Insert (v, c) into a warp's list, one entry per lane in greedy_better order
-// (lane 0 the best; empty entries are (-inf, INT_MAX)); the last entry
-// drops out. A no-op when all 32 entries rank above (v, c).
-__device__ __forceinline__ void list_insert(float& lv, int& lc, float v,
+// Insert (k, c) into a warp's list, one (key, column) entry per lane in
+// rank order (lane 0 the best; empty entries are (0, INT_MAX), rank 0);
+// the last entry drops out. A no-op when all 32 entries rank above (k, c).
+__device__ __forceinline__ void list_insert(unsigned& lk, int& lc, unsigned k,
                                             int c, int lane) {
-  const int pos = __popc(__ballot_sync(kFull, greedy_better(lv, lc, v, c)));
-  const float up_v = __shfl_up_sync(kFull, lv, 1);
+  const int pos =
+      __popc(__ballot_sync(kFull, cell_rank(lk, lc) > cell_rank(k, c)));
+  const unsigned up_k = __shfl_up_sync(kFull, lk, 1);
   const int up_c = __shfl_up_sync(kFull, lc, 1);
   if (lane == pos) {
-    lv = v;
+    lk = k;
     lc = c;
   } else if (lane > pos) {
-    lv = up_v;
+    lk = up_k;
     lc = up_c;
   }
 }
@@ -741,10 +741,10 @@ __device__ __forceinline__ void list_insert(float& lv, int& lc, float v,
 // ... (lane l four consecutive columns of each, one 16-byte load where
 // aligned, the next chunk's load in flight), so the columns a warp meets
 // ascend from chunk to chunk. It keeps its own top 32; a cell is a
-// candidate only when its value beats the list's last value at the start
-// of its chunk (an equal value comes at a larger column and ranks below),
-// and only a candidate's r capacity words are read. Candidates are
-// inserted one at a time.
+// candidate only when its key is above both qualify_key() and the list's
+// last key at the start of its chunk (an equal key comes at a larger
+// column and ranks below), and only a candidate's r capacity words are
+// read. Candidates are inserted one at a time.
 //
 // The eight warp lists (256 entries) are then sorted into one list by a
 // merge network in shared memory: per level, each element is compared with
@@ -757,18 +757,17 @@ __device__ __forceinline__ void list_insert(float& lv, int& lc, float v,
 template <bool kVec>
 __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
     const float* __restrict__ sj, const float* __restrict__ req,
-    const float* __restrict__ free0, float* __restrict__ list_val,
+    const float* __restrict__ free0, unsigned* __restrict__ list_key,
     int* __restrict__ list_col, int* __restrict__ list_cnt, int p, int n,
     int r, int list_len) {
   __shared__ float s_req[kMaxRes];
-  __shared__ float s_lv[kListLen];
+  __shared__ unsigned s_lk[kListLen];
   __shared__ int s_lc[kListLen];
   __shared__ int s_bcol;   // B's column, INT_MAX when no warp list is full
   __shared__ int s_bpos;   // B's position in the merged list
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const float neg_inf = __int_as_float(0xff800000);
   const float4 fill = make_float4(kNeg, kNeg, kNeg, kNeg);
   constexpr int kStride = kListWarps * kChunk;
   for (int i = blockIdx.x; i < p; i += gridDim.x) {
@@ -776,52 +775,47 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
     for (int k = t; k < r; k += blockDim.x) s_req[k] = req[(size_t)i * r + k];
     __syncthreads();
     const float* row = sj + (size_t)i * n;
-    float lv = neg_inf;  // this lane's entry of the warp's list
+    unsigned lk = 0;  // this lane's entry of the warp's list
     int lc = INT_MAX;
-    float thr = neg_inf;  // the list's last value
-    bool thr_open = true;  // thr is a number
+    // a candidate's key is above thr: the list's last key, or
+    // qualify_key() while the list has room
+    unsigned thr = qualify_key();
     int j = warp * kChunk + 4 * lane;
     float4 ahead = j < n ? load4<kVec>(row, j, n, kNeg) : fill;
     for (int base = warp * kChunk; base < n; base += kStride, j += kStride) {
       const float4 x = ahead;
       ahead = j + kStride < n ? load4<kVec>(row, j + kStride, n, kNeg) : fill;
+      const unsigned kx = value_key(x.x), ky = value_key(x.y),
+                     kz = value_key(x.z), kw = value_key(x.w);
       unsigned pend = 0;
-      if (thr_open && greedy_qualifies(x.x) && above_number(x.x, thr) &&
-          fits(s_req, free0, j, r))
-        pend |= 1u;
-      if (thr_open && greedy_qualifies(x.y) && above_number(x.y, thr) &&
-          fits(s_req, free0, j + 1, r))
-        pend |= 2u;
-      if (thr_open && greedy_qualifies(x.z) && above_number(x.z, thr) &&
-          fits(s_req, free0, j + 2, r))
-        pend |= 4u;
-      if (thr_open && greedy_qualifies(x.w) && above_number(x.w, thr) &&
-          fits(s_req, free0, j + 3, r))
-        pend |= 8u;
+      if (kx > thr && fits(s_req, free0, j, r)) pend |= 1u;
+      if (ky > thr && fits(s_req, free0, j + 1, r)) pend |= 2u;
+      if (kz > thr && fits(s_req, free0, j + 2, r)) pend |= 4u;
+      if (kw > thr && fits(s_req, free0, j + 3, r)) pend |= 8u;
       for (unsigned who = __ballot_sync(kFull, pend != 0); who != 0;
            who = __ballot_sync(kFull, pend != 0)) {
         const int src = __ffs(who) - 1;
         const int e = __ffs(pend) - 1;  // this lane's first pending cell
-        const float mine = e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
-        const float v = __shfl_sync(kFull, mine, src);
+        const unsigned mine = e == 0 ? kx : e == 1 ? ky : e == 2 ? kz : kw;
+        const unsigned k = __shfl_sync(kFull, mine, src);
         const int c = __shfl_sync(kFull, j + e, src);
         if (lane == src) pend &= pend - 1;
-        list_insert(lv, lc, v, c, lane);
+        list_insert(lk, lc, k, c, lane);
       }
-      thr = __shfl_sync(kFull, lv, 31);
-      thr_open = thr == thr;  // a list ending in a NaN admits no candidate
+      const unsigned last = __shfl_sync(kFull, lk, 31);
+      if (last > thr) thr = last;
     }
-    s_lv[t] = lv;
+    s_lk[t] = lk;
     s_lc[t] = lc;
     __syncthreads();
     if (t == 0) {  // B: the best last entry of a full warp list
-      float bv = neg_inf;
+      unsigned long long b = 0;
       int bc = INT_MAX;
       for (int w = 0; w < kListWarps; ++w) {
         const int last = 32 * w + 31;
-        if (s_lc[last] != INT_MAX &&
-            greedy_better(s_lv[last], s_lc[last], bv, bc)) {
-          bv = s_lv[last];
+        const unsigned long long k = cell_rank(s_lk[last], s_lc[last]);
+        if (s_lc[last] != INT_MAX && k > b) {
+          b = k;
           bc = s_lc[last];
         }
       }
@@ -835,21 +829,21 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
         const int o = t & (2 * d - 1);
         const int u = d == run ? t - o + 2 * d - 1 - o : t ^ d;
         if (o < d) {
-          const float uv = s_lv[u];
+          const unsigned uv = s_lk[u];
           const int uc = s_lc[u];
-          if (greedy_better(uv, uc, s_lv[t], s_lc[t])) {
-            s_lv[u] = s_lv[t];
+          if (cell_rank(uv, uc) > cell_rank(s_lk[t], s_lc[t])) {
+            s_lk[u] = s_lk[t];
             s_lc[u] = s_lc[t];
-            s_lv[t] = uv;
+            s_lk[t] = uv;
             s_lc[t] = uc;
           }
         }
         __syncthreads();
       }
     }
-    lv = s_lv[t];
+    lk = s_lk[t];
     lc = s_lc[t];
-    list_val[(size_t)i * kListLen + t] = lv;
+    list_key[(size_t)i * kListLen + t] = lk;
     list_col[(size_t)i * kListLen + t] = lc;
     if (lc == s_bcol && lc != INT_MAX) s_bpos = t;
     const int found = __syncthreads_count(lc != INT_MAX);
@@ -889,18 +883,17 @@ __device__ __forceinline__ PodEntry load_pod(const float* __restrict__ req,
 template <bool kVec>
 __global__ void __launch_bounds__(kPassThreads) greedy_pass_kernel(
     const float* __restrict__ sj, const float* __restrict__ req,
-    const float* __restrict__ free0, const float* __restrict__ list_val,
+    const float* __restrict__ free0, const unsigned* __restrict__ list_key,
     const int* __restrict__ list_col, const int* __restrict__ list_cnt,
     float* free_after, int* __restrict__ picks, int* __restrict__ fallbacks,
     int p, int n, int r, int free_in_smem) {
   extern __shared__ float s_free[];
   __shared__ float s_req[kMaxRes];
-  __shared__ float s_val[kPassWarps];
-  __shared__ int s_col[kPassWarps];
+  __shared__ unsigned long long s_rank[kPassWarps];
+  // the row scan takes the cells ranked below s_hi: after the list's last
+  // entry, or every cell (~0) once the guard has tripped
+  __shared__ unsigned long long s_hi;
   __shared__ int s_pod;       // the pod whose row the block scans; p: done
-  __shared__ int s_after;     // scan only the cells ranked after (s_last_*)
-  __shared__ float s_last_val;
-  __shared__ int s_last_col;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* fr = free_in_smem ? s_free : free_after;
@@ -955,11 +948,11 @@ __global__ void __launch_bounds__(kPassThreads) greedy_pass_kernel(
       }
       if (lane == 0) {
         s_pod = i;
-        s_after = exact;
+        s_hi = ~0ull;
         if (i < p && exact) {
-          const int last = (list_cnt[i] & (kListFull - 1)) - 1;
-          s_last_val = list_val[(size_t)i * kListLen + last];
-          s_last_col = list_col[(size_t)i * kListLen + last];
+          const size_t last =
+              (size_t)i * kListLen + (list_cnt[i] & (kListFull - 1)) - 1;
+          s_hi = cell_rank(list_key[last], list_col[last]);
         }
       }
       next = i + 1;
@@ -967,84 +960,51 @@ __global__ void __launch_bounds__(kPassThreads) greedy_pass_kernel(
     __syncthreads();
     const int i = s_pod;
     if (i >= p) break;
-    const bool after = s_after != 0;
-    const float last_val = s_last_val;
-    const int last_col = s_last_col;
+    const unsigned long long hi = s_hi;
     const float* row = sj + (size_t)i * n;
-    float best = __int_as_float(0xff800000);  // -inf
-    int best_col = INT_MAX;
-    bool open = true;  // best is a number: a NaN best is never beaten
-    // The row's cells that qualify, fit, and pass ranked_after(x, col), in
-    // ascending columns per thread (float4 groups t, t + T, ... with
-    // T = blockDim.x, kScanUnroll loads in flight before any is compared),
-    // so the first of equal values (and of NaN) is kept.
-    auto scan = [&](auto ranked_after) {
-      auto cell = [&](float x, int col) {
-        if (open && greedy_qualifies(x) && above_number(x, best) &&
-            ranked_after(x, col) && fits(s_req, fr, col, r)) {
-          best = x;
-          best_col = col;
-          open = x == x;
-        }
-      };
-      const int groups = (n + 3) / 4;
-      for (int g0 = threadIdx.x; g0 < groups; g0 += kScanUnroll * blockDim.x) {
-        float4 x[kScanUnroll];
-#pragma unroll
-        for (int u = 0; u < kScanUnroll; ++u) {
-          const int g = g0 + u * blockDim.x;
-          x[u] = g < groups ? load4<kVec>(row, 4 * g, n, kNeg)
-                            : make_float4(kNeg, kNeg, kNeg, kNeg);
-        }
-#pragma unroll
-        for (int u = 0; u < kScanUnroll; ++u) {
-          const int j = 4 * (g0 + u * blockDim.x);
-          cell(x[u].x, j);
-          cell(x[u].y, j + 1);
-          cell(x[u].z, j + 2);
-          cell(x[u].w, j + 3);
-        }
-      }
+    // the best cell that qualifies, fits and ranks below hi; thread t reads
+    // float4 groups t, t + T, ... (T = blockDim.x), kScanUnroll loads in
+    // flight before any is compared
+    const unsigned long long none = cell_rank(qualify_key(), 0);
+    unsigned long long best = none;
+    auto cell = [&](float x, int col) {
+      const unsigned long long k = cell_rank(value_key(x), col);
+      if (k > best && k < hi && fits(s_req, fr, col, r)) best = k;
     };
-    // the cells ranked after the list's last entry, in greedy_better's
-    // order, one specialised loop per case (`after` and the entry are
-    // uniform across the block)
-    if (!after) {
-      scan([](float, int) { return true; });
-    } else if (last_val != last_val) {  // after a NaN: numbers, later NaN
-      scan([&](float x, int col) { return x == x || col > last_col; });
-    } else {  // after a number: never a NaN (bid_better is false for one)
-      scan([&](float x, int col) {
-        return bid_better(last_val, last_col, x, col);
-      });
+    const int groups = (n + 3) / 4;
+    for (int g0 = threadIdx.x; g0 < groups; g0 += kScanUnroll * blockDim.x) {
+      float4 x[kScanUnroll];
+#pragma unroll
+      for (int u = 0; u < kScanUnroll; ++u) {
+        const int g = g0 + u * blockDim.x;
+        x[u] = g < groups ? load4<kVec>(row, 4 * g, n, kNeg)
+                          : make_float4(kNeg, kNeg, kNeg, kNeg);
+      }
+#pragma unroll
+      for (int u = 0; u < kScanUnroll; ++u) {
+        const int j = 4 * (g0 + u * blockDim.x);
+        cell(x[u].x, j);
+        cell(x[u].y, j + 1);
+        cell(x[u].z, j + 2);
+        cell(x[u].w, j + 3);
+      }
     }
     for (int off = 16; off > 0; off >>= 1) {
-      const float o_val = __shfl_down_sync(kFull, best, off);
-      const int o_col = __shfl_down_sync(kFull, best_col, off);
-      if (greedy_better(o_val, o_col, best, best_col)) {
-        best = o_val;
-        best_col = o_col;
-      }
+      const unsigned long long o = __shfl_down_sync(kFull, best, off);
+      if (o > best) best = o;
     }
-    if (lane == 0) {
-      s_val[warp] = best;
-      s_col[warp] = best_col;
-    }
+    if (lane == 0) s_rank[warp] = best;
     __syncthreads();
     if (warp == 0) {
-      best = s_val[lane];
-      best_col = s_col[lane];
+      best = s_rank[lane];
       for (int off = 16; off > 0; off >>= 1) {
-        const float o_val = __shfl_down_sync(kFull, best, off);
-        const int o_col = __shfl_down_sync(kFull, best_col, off);
-        if (greedy_better(o_val, o_col, best, best_col)) {
-          best = o_val;
-          best_col = o_col;
-        }
+        const unsigned long long o = __shfl_down_sync(kFull, best, off);
+        if (o > best) best = o;
       }
-      const int pick = __shfl_sync(kFull, best_col, 0);
-      if (lane == 0) picks[i] = pick == INT_MAX ? -1 : pick;
-      if (pick != INT_MAX && lane < r) {
+      best = __shfl_sync(kFull, best, 0);
+      const int pick = best > none ? rank_col(best) : -1;
+      if (lane == 0) picks[i] = pick;
+      if (pick >= 0 && lane < r) {
         float* f = fr + (size_t)pick * r + lane;
         *f = __fsub_rn(*f, s_req[lane]);
       }
@@ -1067,12 +1027,12 @@ inline bool aligned16(const void* ptr) {
 template <bool kVec>
 cudaError_t launch_greedy_scan(const float* sj, const float* req,
                                const float* free0, float* free_after,
-                               int* picks, float* list_val, int* list_col,
+                               int* picks, unsigned* list_key, int* list_col,
                                int* list_cnt, int* fallbacks, int p, int n,
                                int r, int list_len, cudaStream_t stream) {
   if (p > 0) {
     greedy_lists_kernel<kVec><<<grid_rows(p), kListThreads, 0, stream>>>(
-        sj, req, free0, list_val, list_col, list_cnt, p, n, r, list_len);
+        sj, req, free0, list_key, list_col, list_cnt, p, n, r, list_len);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1095,7 +1055,7 @@ cudaError_t launch_greedy_scan(const float* sj, const float* req,
     if (err != cudaSuccess) return err;
   }
   greedy_pass_kernel<kVec><<<1, kPassThreads, in_smem ? need : 0, stream>>>(
-      sj, req, free0, list_val, list_col, list_cnt, free_after, picks,
+      sj, req, free0, list_key, list_col, list_cnt, free_after, picks,
       fallbacks, p, n, r, in_smem ? 1 : 0);
   return cudaGetLastError();
 }
@@ -1183,7 +1143,7 @@ int ks_auction_bid(const void* sj, const void* price, const void* active,
 }
 
 int ks_greedy_scan(const void* sj, const void* req, const void* free0,
-                   void* free_after, void* picks, void* list_val,
+                   void* free_after, void* picks, void* list_key,
                    void* list_col, void* list_cnt, void* fallbacks, int p,
                    int n, int r, int list_len, void* stream) {
   const auto* sj_f = static_cast<const float*>(sj);
@@ -1194,12 +1154,12 @@ int ks_greedy_scan(const void* sj, const void* req, const void* free0,
       n % 4 == 0 && aligned16(sj)
           ? launch_greedy_scan<true>(
                 sj_f, req_f, free0_f, static_cast<float*>(free_after),
-                static_cast<int*>(picks), static_cast<float*>(list_val),
+                static_cast<int*>(picks), static_cast<unsigned*>(list_key),
                 static_cast<int*>(list_col), static_cast<int*>(list_cnt),
                 static_cast<int*>(fallbacks), p, n, r, list_len, s)
           : launch_greedy_scan<false>(
                 sj_f, req_f, free0_f, static_cast<float*>(free_after),
-                static_cast<int*>(picks), static_cast<float*>(list_val),
+                static_cast<int*>(picks), static_cast<unsigned*>(list_key),
                 static_cast<int*>(list_col), static_cast<int*>(list_cnt),
                 static_cast<int*>(fallbacks), p, n, r, list_len, s);
   return static_cast<int>(err);

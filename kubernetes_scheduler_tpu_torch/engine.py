@@ -385,8 +385,9 @@ class WindowsResult(NamedTuple):
 class SnapshotDelta(NamedTuple):
     """Cycle-over-cycle change to a retained SnapshotArrays (reference:
     engine.SnapshotDelta): changed rows BY VALUE (set, never add, so a
-    folded snapshot is bitwise the one a full upload would give). Leaves
-    are numpy arrays or tensors.
+    folded snapshot is bitwise the one a full upload would give). Rows
+    and values are host arrays (numpy or CPU tensors); the node mask may
+    also be a device tensor.
 
     Row index arrays are bucket-padded with the sentinel n (the node
     axis length), which the folds drop, as the reference's scatter with
@@ -412,39 +413,30 @@ DOMAIN_TABLES = ("domain_counts", "avoid_counts", "pref_attract", "pref_avoid")
 
 
 class _Rows(NamedTuple):
-    """One row family of a delta on the device, ready for index_copy_."""
+    """One row family of a delta on the device, ready for index_copy_:
+    every row lies in [0, n), the sentinels already dropped."""
 
     rows: torch.Tensor  # [k] int64
     vals: torch.Tensor  # [k, ...] float32
-    exact: bool         # every row in [0, n): no sentinel left
 
 
 def _upload_rows(rows, vals, n: int, device: torch.device) -> _Rows:
-    """A delta's row family on `device`. Host rows (numpy or a CPU tensor)
-    are filtered to [0, n) on the host, so only the kept rows cross and
-    nothing is read back; rows already on a card keep their sentinels,
-    which _set_rows then writes to a scratch row."""
-    if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
-        return _Rows(rows.to(device, torch.int64), as_leaf(vals, _F32, device), False)
+    """A delta's row family on `device`. The rows are filtered to [0, n)
+    on the host, so only the kept rows cross and nothing is read back (an
+    out-of-range index_copy_ on a card is a device-side assert). Rows and
+    values must be host arrays (numpy or CPU tensors), as the host's delta
+    builder makes them."""
+    for x in (rows, vals):
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            raise ValueError(
+                f"SnapshotDelta rows and values must be host arrays, got a tensor on {x.device}"
+            )
     rows = np.asarray(rows)
     vals = np.asarray(vals, dtype=np.float32)
     keep = (rows >= 0) & (rows < n)
     if not keep.all():
         rows, vals = rows[keep], vals[keep]
-    return _Rows(to_device(rows, device).long(), to_device(vals, device), True)
-
-
-def _set_rows(leaf: torch.Tensor, rows: _Rows, vals: torch.Tensor) -> None:
-    """leaf[rows] = vals in place, dropping rows outside [0, n) (an
-    out-of-range index_copy_ on a card is a device-side assert)."""
-    if rows.exact:
-        leaf.index_copy_(0, rows.rows, vals)
-        return
-    n = leaf.shape[0]
-    ext = torch.cat([leaf, leaf.new_zeros((1,) + tuple(leaf.shape[1:]))])
-    r = rows.rows
-    ext.index_copy_(0, torch.where((r >= 0) & (r < n), r, n), vals)
-    leaf.copy_(ext[:n])
+    return _Rows(to_device(rows, device).long(), to_device(vals, device))
 
 
 class _DeviceDelta(NamedTuple):
@@ -470,11 +462,11 @@ def _apply_delta_rows(snapshot: SnapshotArrays, dd: _DeviceDelta) -> SnapshotArr
     """The row folds of apply_snapshot_delta, in place, on an uploaded
     delta: `requested`, the utilization series and the domain tables get
     their rows, the node mask its new contents."""
-    _set_rows(snapshot.requested, dd.req, dd.req.vals)
+    snapshot.requested.index_copy_(0, dd.req.rows, dd.req.vals)
     for col, name in enumerate(UTIL_SERIES):
-        _set_rows(getattr(snapshot, name), dd.util, dd.util.vals[:, col])
+        getattr(snapshot, name).index_copy_(0, dd.util.rows, dd.util.vals[:, col])
     for col, name in enumerate(DOMAIN_TABLES):
-        _set_rows(getattr(snapshot, name), dd.dom, dd.dom.vals[:, :, col])
+        getattr(snapshot, name).index_copy_(0, dd.dom.rows, dd.dom.vals[:, :, col])
     snapshot.node_mask.copy_(dd.node_mask)
     return snapshot
 
@@ -573,9 +565,9 @@ def _apply_layout_rows(layout: FusedLayout, dd: _DeviceDelta) -> FusedLayout:
     reqd gets the `requested` rows, node_mask its new contents; alloc
     never rides a delta."""
     util = dd.util.vals
-    _set_rows(layout.u, dd.util, util[:, 0] / util.new_full((), DISK_IO_DIVISOR))
-    _set_rows(layout.v, dd.util, util[:, 1] / util.new_full((), CPU_DIVISOR))
-    _set_rows(layout.reqd, dd.req, dd.req.vals)
+    layout.u.index_copy_(0, dd.util.rows, util[:, 0] / util.new_full((), DISK_IO_DIVISOR))
+    layout.v.index_copy_(0, dd.util.rows, util[:, 1] / util.new_full((), CPU_DIVISOR))
+    layout.reqd.index_copy_(0, dd.req.rows, dd.req.vals)
     layout.node_mask.copy_(dd.node_mask)
     return layout
 

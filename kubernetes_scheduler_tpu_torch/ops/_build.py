@@ -40,7 +40,7 @@ SIGNATURES = {
     "ks_row_stats": [_P] * 6 + [_I] * 2 + [_P],
     # sj, price, active, req, free, bid, has, p, n, r, stream
     "ks_auction_bid": [_P] * 7 + [_I] * 3 + [_P],
-    # sj, req, free0, free_after, picks, list_val, list_col, list_cnt,
+    # sj, req, free0, free_after, picks, list_key, list_col, list_cnt,
     # fallbacks, p, n, r, list_len, stream
     "ks_greedy_scan": [_P] * 9 + [_I] * 4 + [_P],
 }

@@ -412,7 +412,7 @@ def greedy_scan(sj, req, free0, *, _plain=False, _list_len=GREEDY_LIST_LEN):
         raise ValueError(f"greedy_scan: {r} resources > {MAX_RESOURCES}")
     picks = torch.empty(p, dtype=i32, device=dev)
     free_after = torch.empty((n, r), dtype=f32, device=dev)
-    list_val = torch.empty((p, GREEDY_LIST_LEN), dtype=f32, device=dev)
+    list_key = torch.empty((p, GREEDY_LIST_LEN), dtype=i32, device=dev)
     list_col = torch.empty((p, GREEDY_LIST_LEN), dtype=i32, device=dev)
     list_cnt = torch.empty(p, dtype=i32, device=dev)
     fallbacks = torch.empty(1, dtype=i32, device=dev)
@@ -420,7 +420,7 @@ def greedy_scan(sj, req, free0, *, _plain=False, _list_len=GREEDY_LIST_LEN):
     with torch.cuda.device(dev):
         rc = lib.ks_greedy_scan(
             _ptr(sj), _ptr(req), _ptr(free0), _ptr(free_after), _ptr(picks),
-            _ptr(list_val), _ptr(list_col), _ptr(list_cnt), _ptr(fallbacks),
+            _ptr(list_key), _ptr(list_col), _ptr(list_cnt), _ptr(fallbacks),
             p, n, r, _list_len, _stream(dev),
         )
     check_launch(lib, rc, "greedy_scan")

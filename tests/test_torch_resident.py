@@ -102,22 +102,26 @@ def test_torch_delta_fold_matches_reference(kind):
     assert_leaves_equal(from_reference(prev, device="cpu"), prev)
 
 
-def test_torch_rows_on_card_drop_sentinels_like_host_rows():
-    """_set_rows' scratch-row path (rows left on a card keep their
-    sentinels) gives the host-filtered path's result, on CPU tensors."""
+def test_torch_delta_rows_must_be_host_arrays():
+    """A row family is filtered to [0, n) on the host (the sentinels never
+    cross) and folds by index_copy_; rows or values already on a device
+    raise (here a meta tensor stands for a card's)."""
     rng = np.random.default_rng(3)
     leaf = torch.from_numpy(rng.uniform(size=(10, 3)).astype(np.float32))
-    rows = torch.tensor([7, 10, 2, 10, 10], dtype=torch.int64)
-    vals = torch.from_numpy(rng.uniform(size=(5, 3)).astype(np.float32))
-    a, b = leaf.clone(), leaf.clone()
-    engine._set_rows(a, engine._Rows(rows, vals, False), vals)
-    host_rows = engine._upload_rows(rows.numpy(), vals.numpy(), 10, torch.device("cpu"))
-    assert host_rows.exact and host_rows.rows.tolist() == [7, 2]
-    engine._set_rows(b, host_rows, host_rows.vals)
-    assert torch.equal(a, b)
+    rows = np.array([7, 10, 2, 10, 10], np.int32)
+    vals = rng.uniform(size=(5, 3)).astype(np.float32)
+    got = engine._upload_rows(rows, vals, 10, torch.device("cpu"))
+    assert got.rows.tolist() == [7, 2]
+    a = leaf.clone()
+    a.index_copy_(0, got.rows, got.vals)
     want = leaf.clone()
-    want[[7, 2]] = vals[[0, 2]]
+    want[[7, 2]] = torch.from_numpy(vals[[0, 2]])
     assert torch.equal(a, want)
+    on_device = torch.empty(5, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="host arrays"):
+        engine._upload_rows(on_device, vals, 10, torch.device("cpu"))
+    with pytest.raises(ValueError, match="host arrays"):
+        engine._upload_rows(rows, torch.empty(5, 3, device="meta"), 10, torch.device("cpu"))
 
 
 def test_torch_delta_np_and_nbytes_match_reference():
