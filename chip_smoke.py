@@ -77,9 +77,22 @@ Phases; the first failure exits non-zero and no result line is printed:
    full); epoch-gap and invalidate flushes, the resident backlog and a
    fleet dispatch, each equal to its non-resident call; K1-K4 launches
    counted per delta cycle, backlog and fleet call;
-13. the kernels line, then the result line.
+13. the port's own host loop (host.scheduler.Scheduler on TorchEngine())
+   at 10,000 nodes, the bench's loop_rate shape: a warm 8,192-pod backlog
+   and 3 measured ones, 8 windows of 1,024 a cycle, the engine path
+   pinned and every other option at its default, with resident_state
+   False and True: pods/s, cycle p50/p99, engine seconds and
+   host-to-device bytes a cycle, K1-K4 launches around each measured
+   cycle (8 K1, 8 K2, >= 8 K3 an 8-window cycle); bindings equal to the
+   same drain on the kernels' plain versions, no cycle on the scalar
+   route; then 1,000 nodes, both assigners, card against CPU bindings;
+14. preemption through the host loop at 10,000 nodes full of low-priority
+   pods (run_host_preemption): the pass on the card, bitwise its CPU run,
+   victims below their preemptors, one proposal a node, its ms, peak
+   memory and bytes; then the preemptors bind to their nominated nodes;
+15. the kernels line, then the result line.
 
-Phases 7-12 print their seconds. Timed runs are medians of 3; equality
+Phases 7-14 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, and nothing of JAX.
@@ -1798,18 +1811,383 @@ def run_resident(torch, port, snap, pods) -> dict:
     return launches
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-tree", default=None,
-                    help="a checkout of an earlier commit (e09185f or later): time its "
-                         "K1, K2 and K4 beside this tree's")
-    args = ap.parse_args()
-    try:
-        import torch
-    except ImportError as e:
-        fail(f"torch is not importable: {e}")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+# ---- phases 13 and 14: the port's own host loop -----------------------------
+
+HOST_NODES = 10_000        # the north-star cluster (BASELINE.md, 10k nodes)
+HOST_BACKLOG = N_WINDOWS * WINDOW
+HOST_MEASURED_SEEDS = (2, 3, 4)
+HOST_SMALL_NODES = 1_000
+HOST_CFG = dict(batch_window=WINDOW, max_windows_per_cycle=N_WINDOWS,
+                adaptive_dispatch=False, min_device_work=1)
+QUEUE_TICK_S = 30.0        # virtual queue clock per cycle: past max_backoff_seconds
+PREEMPTORS = 128           # SchedulerConfig.preemption_max_candidates
+VICTIMS_PER_NODE = 4
+
+
+def engine_variant(port, *, plain=False, record=False):
+    """A TorchEngine subclass: with `plain` every schedule call runs the
+    kernels' plain versions (`_plain=True`); with `record` it keeps each
+    schedule_batch's (pods, result) and the last preempt's inputs and
+    result."""
+    base = port["TorchEngine"]
+    extra = {"_plain": True} if plain else {}
+
+    class Engine(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.batches, self.last_preempt = [], None
+
+        def schedule_batch(self, s, p, **kw):
+            res = super().schedule_batch(s, p, **kw, **extra)
+            if record:
+                self.batches.append((p, res))
+            return res
+
+        def schedule_windows(self, s, p, **kw):
+            return super().schedule_windows(s, p, **kw, **extra)
+
+        def schedule_resident(self, s, p, **kw):
+            return super().schedule_resident(s, p, **kw, **extra)
+
+        def schedule_windows_resident(self, s, p, **kw):
+            return super().schedule_windows_resident(s, p, **kw, **extra)
+
+        def preempt(self, snapshot, pods, victims, *, k_cap):
+            res = super().preempt(snapshot, pods, victims, k_cap=k_cap)
+            if record:
+                self.last_preempt = ((snapshot, pods, victims), k_cap, res)
+            return res
+
+    return Engine
+
+
+def host_scheduler(port, engine, nodes, advisor, running, cfg, evictor=None):
+    """(the port's Scheduler over `nodes`, its virtual queue clock)."""
+    clock = [0.0]
+    sched = port["Scheduler"](
+        port["SchedulerConfig"](**cfg), advisor=advisor, evictor=evictor,
+        list_nodes=lambda: nodes, list_running_pods=lambda: running,
+        engine=engine, queue_clock=lambda: clock[0])
+    return sched, clock
+
+
+def host_backlog(port, n: int, seed: int) -> list:
+    """gen_host_pods(n, seed), names prefixed by the seed (each backlog's
+    pods are distinct running pods once bound)."""
+    pods = port["gen_host_pods"](n, seed=seed)
+    for pod in pods:
+        pod.name = f"s{seed}-{pod.name}"
+    return pods
+
+
+def drain_cycles(torch, port, sched, clock, running, max_cycles: int = 16) -> list:
+    """Cycles until the queue is empty or a cycle pops nothing, binds fed
+    back as running pods and the queue clock advanced past the retry
+    backoff after each. The launch counts and device.transfers are set to
+    0 just before each cycle and read just after. Returns [(CycleMetrics,
+    launches, transfers)] of the cycles that popped pods."""
+    out = []
+    seen = len(sched.binder.bindings)
+    for _ in range(max_cycles):
+        if len(sched.queue) == 0 and sched._prefetched is None:
+            break
+        torch.cuda.synchronize()
+        port["fused"].reset_launches()
+        port["reset_transfers"]()
+        m = sched.run_cycle()
+        torch.cuda.synchronize()
+        launches = dict(port["fused"].launches)
+        io = dict(port["transfers"])
+        clock[0] += QUEUE_TICK_S
+        for b in sched.binder.bindings[seen:]:
+            running.append(b.pod)
+        seen = len(sched.binder.bindings)
+        if m.pods_in == 0:
+            break
+        out.append((m, launches, io))
+    return out
+
+
+def check_device_route(what: str, sched, cycles) -> None:
+    """Fail unless every cycle ran on the engine: no scalar fallback, the
+    engine breaker closed, the engine rung on top."""
+    for m, _, _ in cycles:
+        if m.used_fallback or m.engine_seconds <= 0:
+            fail(f"{what}: a cycle took the scalar route ({m})")
+    if (sched.totals["fallback_cycles"] or sched.engine_breaker.state() != "closed"
+            or sched.ladder.depth("engine")):
+        fail(f"{what}: degraded engine path: totals {sched.totals}, breaker "
+             f"{sched.engine_breaker.state()}")
+
+
+def host_drain(torch, port, engine, nodes, advisor, cfg, seeds, n_pods, profile=False):
+    """One Scheduler: a warm backlog (seed 1), then one backlog per seed.
+    Returns (scheduler, measured cycles, bindings as (pod, node) names,
+    host profile): with `profile`, one more backlog drains under
+    cProfile after the measured ones (its binds are not returned), and
+    the profile is the port's functions by cumulative host time."""
+    running = []
+    sched, clock = host_scheduler(port, engine, nodes, advisor, running, cfg)
+    for pod in host_backlog(port, n_pods, 1):
+        sched.submit(pod)
+    drain_cycles(torch, port, sched, clock, running)
+    cycles = []
+    for seed in seeds:
+        for pod in host_backlog(port, n_pods, seed):
+            sched.submit(pod)
+        cycles += drain_cycles(torch, port, sched, clock, running)
+    binds = [(b.pod.name, b.node_name) for b in sched.binder.bindings]
+    prof = None
+    if profile:
+        for pod in host_backlog(port, n_pods, max(seeds, default=1) + 1):
+            sched.submit(pod)
+        prof = profiled(lambda: drain_cycles(torch, port, sched, clock, running))
+    return sched, cycles, binds, prof
+
+
+def profiled(fn, top: int = 14) -> dict:
+    """fn() under cProfile: its wall ms (profiled) and the port's
+    functions with the most cumulative host time, [name, ms, calls]."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for (path, line, func), (_, calls, _, cum, _) in pstats.Stats(prof).stats.items():
+        if "kubernetes_scheduler_tpu_torch" in path and func not in (
+                "run_cycle", "_run_cycle_serial", "_maybe_profile", "<lambda>"):
+            mod = path.split("kubernetes_scheduler_tpu_torch/")[-1]
+            rows.append([f"{mod}:{func}", cum * 1e3, calls])
+    rows.sort(key=lambda r: -r[1])
+    return {"profiled_wall_ms": wall, "top_cumulative_ms": rows[:top]}
+
+
+def run_host_loop(torch, port) -> dict:
+    """Phase 13: the bench's loop_rate shape through the port's own
+    Scheduler at 10,000 nodes (gen_host_cluster(10_000, seed=0)): a warm
+    backlog of gen_host_pods(8_192, seed=1), then 3 measured backlogs
+    (seeds 2-4), binds fed back as running pods, at batch_window 1,024,
+    8 windows a cycle, the engine path pinned (adaptive_dispatch off,
+    min_device_work 1) and every other option at its default (auction,
+    min-max, fused, the snapshot mirror, preemption), with resident_state
+    False and then True. Per run: pods/s, cycle p50/p99 ms, engine
+    seconds a cycle, host-to-device bytes a cycle, and K1-K4 launches
+    counted around each measured cycle (an 8-window cycle: exactly 8 K1
+    and 8 K2, at least 8 K3, no K4; one device-to-host read of the
+    result, device.to_host); one more backlog under cProfile for
+    the host's breakdown. Every run's bindings equal the same
+    drain on an engine running every kernel's plain version, and no cycle
+    took the scalar route. Then on 1,000 nodes, 2 x 1,024 pods a window a
+    cycle, both assigners: the card's bindings equal the port's CPU
+    bindings, or differ first at a greedy near-tie (decisions_match).
+    Returns the launches per measured cycle, per run."""
+    nodes, advisor = port["gen_host_cluster"](HOST_NODES, seed=0)
+    launches = {}
+    for resident in (False, True):
+        name = "resident" if resident else "full_upload"
+        cfg = dict(HOST_CFG, resident_state=resident)
+        binds = {}
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            sched, cycles, binds[plain], prof = host_drain(
+                torch, port, engine_variant(port, plain=plain)(), nodes, advisor, cfg,
+                HOST_MEASURED_SEEDS, HOST_BACKLOG, profile=not plain)
+            check_device_route(f"host loop {name}", sched, cycles)
+            if plain:
+                emit({"phase": f"host_loop_{name}_plain", "seconds": time.perf_counter() - t0,
+                      "pods_bound": sum(m.pods_bound for m, _, _ in cycles)})
+                continue
+            per_cycle = []
+            for m, ln, _ in cycles:
+                windows = -(-m.pods_in // WINDOW)
+                want = {"masked_score": windows, "row_stats": windows,
+                        "auction_bid": None, "greedy_scan": 0}
+                expect_launches(f"host loop {name} cycle", ln, want)
+                if ln["auction_bid"] < windows:
+                    fail(f"host loop {name}: {ln['auction_bid']} K3 launches in a "
+                         f"{windows}-window cycle")
+                per_cycle.append(ln)
+            if any(io["d2h_reads"] != 1 for _, _, io in cycles):
+                fail(f"host loop {name}: a cycle read results from the card other than "
+                     f"once: {[io['d2h_reads'] for _, _, io in cycles]}")
+            if not any(-(-m.pods_in // WINDOW) == N_WINDOWS for m, _, _ in cycles):
+                fail(f"host loop {name}: no measured cycle ran {N_WINDOWS} windows")
+            launches[name] = per_cycle
+            lat = [m.cycle_seconds for m, _, _ in cycles]
+            eng = [m.engine_seconds for m, _, _ in cycles]
+            bound = sum(m.pods_bound for m, _, _ in cycles)
+            if bound < len(HOST_MEASURED_SEEDS) * HOST_BACKLOG // 2:
+                fail(f"host loop {name}: {bound} pods bound")
+            emit({"phase": f"host_loop_{name}", "config": "host-10k", "nodes": HOST_NODES,
+                  "backlog": HOST_BACKLOG, "measured_backlogs": len(HOST_MEASURED_SEEDS),
+                  "cycles": len(cycles), "pods_bound": bound,
+                  "pods_per_s": bound / sum(lat),
+                  "cycle_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                  "cycle_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                  "cycle_ms_runs": [x * 1e3 for x in lat],
+                  "engine_s_per_cycle": statistics.mean(eng),
+                  "engine_s_runs": eng, "engine_share": sum(eng) / sum(lat),
+                  "h2d_bytes_per_cycle": [io["h2d_bytes"] for _, _, io in cycles],
+                  "h2d_copies_per_cycle": [io["h2d_copies"] for _, _, io in cycles],
+                  "pods_in_per_cycle": [m.pods_in for m, _, _ in cycles],
+                  "delta_uploads": sched.totals["delta_uploads"],
+                  "full_uploads": sched.totals["full_uploads"],
+                  "launches_per_cycle": per_cycle,
+                  "seconds": time.perf_counter() - t0})
+            emit({"phase": f"host_loop_{name}_profile", "backlog": HOST_BACKLOG, **prof})
+        if binds[False] != binds[True]:
+            first = next(i for i, (a, b) in enumerate(zip(binds[False], binds[True])) if a != b)
+            fail(f"host loop {name}: bindings differ from the plain-kernel run "
+                 f"({len(binds[False])} vs {len(binds[True])}; first at {first})")
+        emit({"phase": f"host_loop_{name}_vs_plain", "bindings": len(binds[False]),
+              "equal": True})
+    run_host_card_vs_cpu(torch, port)
+    return launches
+
+
+def run_host_card_vs_cpu(torch, port) -> None:
+    """Phase 13's small cluster: 1,000 nodes, one backlog of 2 x 1,024
+    pods, one window a cycle, both assigners, card against the port's
+    CPU path (the CPU tests hold that path against the reference's
+    Scheduler)."""
+    nodes, advisor = port["gen_host_cluster"](HOST_SMALL_NODES, seed=0)
+    for assigner in ("auction", "greedy"):
+        cfg = dict(HOST_CFG, max_windows_per_cycle=1, assigner=assigner)
+        card, cpu = engine_variant(port, record=True)(), engine_variant(port, record=True)(
+            device="cpu")
+        got = host_drain(torch, port, card, nodes, advisor, cfg, (), 2 * WINDOW)[2]
+        want = host_drain(torch, port, cpu, nodes, advisor, cfg, (), 2 * WINDOW)[2]
+        verdict = "equal"
+        if got != want:
+            verdict = ""
+            for (pods, g), (_, w) in zip(card.batches, cpu.batches):
+                tpods = type(pods)(*[torch.as_tensor(np.asarray(x)) for x in pods])
+                verdict = decisions_match(torch, port, g, w, tpods, assigner)
+                if verdict != "equal":
+                    break
+            if verdict != "near-tie":
+                fail(f"host loop card vs cpu ({assigner}): bindings differ")
+        emit({"phase": f"host_loop_card_vs_cpu_{assigner}", "nodes": HOST_SMALL_NODES,
+              "pods": 2 * WINDOW, "bindings": len(got), "cycles": len(card.batches),
+              "decisions": verdict})
+
+
+def preemption_cluster(port, n_nodes: int, seed: int = 14):
+    """(nodes, advisor, running, preemptors): gen_host_cluster(n_nodes)
+    with every node full of VICTIMS_PER_NODE low-priority running pods
+    (priorities 0-3, a quarter of the node's cpu and memory each, seeded
+    start times), each node labelled with one of PREEMPTORS groups, and
+    PREEMPTORS priority-9 pods that fit nowhere, preemptor k held by
+    required node affinity to group k (its ~n/128 candidate nodes)."""
+    nodes, advisor = port["gen_host_cluster"](n_nodes, seed=0)
+    Pod, Container, Expr = port["Pod"], port["Container"], port["MatchExpression"]
+    rng = np.random.default_rng(seed)
+    running = []
+    for i, nd in enumerate(nodes):
+        nd.labels = {**nd.labels, "yoda/group": f"g{i % PREEMPTORS}"}
+        for j in range(VICTIMS_PER_NODE):
+            running.append(Pod(
+                name=f"low-{i}-{j}", labels={"scv/priority": str(int(rng.integers(0, 4)))},
+                containers=[Container(requests={
+                    "cpu": nd.allocatable["cpu"] / VICTIMS_PER_NODE,
+                    "memory": nd.allocatable["memory"] / VICTIMS_PER_NODE})],
+                node_name=nd.name, start_time=float(rng.integers(0, 1 << 20))))
+    preemptors = [Pod(
+        name=f"urgent-{k}", labels={"scv/priority": "9"}, annotations={"diskIO": "5"},
+        containers=[Container(requests={"cpu": float(rng.choice([1000, 2000, 3000])),
+                                        "memory": float(2 ** 30)})],
+        node_affinity=[Expr(key="yoda/group", operator="In", values=[f"g{k}"])])
+        for k in range(PREEMPTORS)]
+    return nodes, advisor, running, preemptors
+
+
+def run_host_preemption(torch, port, n_nodes: int = HOST_NODES) -> None:
+    """Phase 14: preemption at 10,000 nodes through the port's Scheduler
+    (preemption_cluster): one cycle with a RecordingEvictor, whose pass
+    must run on the card (TorchEngine.preempt, one call, no in-host
+    fallback) and equal, bitwise, preempt_batch on CPU copies of the same
+    inputs; every eviction's victim below its preemptor's priority, at
+    most one proposal per node. The pass's ms (median of 5, synchronised,
+    on the recorded inputs), its peak device memory and its host-to-device
+    bytes (a fresh engine's first call). Then, once the victims have left
+    the running list (and the mirror), one more cycle binds every
+    preemptor to its nominated node."""
+    nodes, advisor, running, preemptors = preemption_cluster(port, n_nodes)
+    engine = engine_variant(port, record=True)()
+    evictor = port["RecordingEvictor"]()
+    cfg = dict(HOST_CFG, preemption_max_victims=8)
+    sched, clock = host_scheduler(port, engine, nodes, advisor, running, cfg, evictor)
+    for pod in preemptors:
+        sched.submit(pod)
+    t0 = time.perf_counter()
+    m = sched.run_cycle()
+    cycle_s = time.perf_counter() - t0
+    if m.pods_bound or engine.preempt_calls != 1 or engine.last_preempt is None:
+        fail(f"preemption: {m.pods_bound} bound, {engine.preempt_calls} engine passes")
+    check_device_route("preemption", sched, [(m, None, None)])
+    inputs, k_cap, res = engine.last_preempt
+    cpu = port["preempt_on_host"](*inputs, k_cap=k_cap)
+    for leaf in ("node", "victims", "n_victims"):
+        got, want = getattr(res, leaf), getattr(cpu, leaf)
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            fail(f"preemption: the card's {leaf} differs from preempt_batch on the CPU")
+    prio = {p.name: int(p.labels["scv/priority"]) for p in running + preemptors}
+    where = {p.name: p.node_name for p in running}
+    nominated = {}
+    for e in evictor.evictions:
+        if prio[e.victim.name] >= prio[e.preemptor.name]:
+            fail(f"preemption: {e.victim.name} is not below {e.preemptor.name}")
+        node = nominated.setdefault(e.preemptor.name, where[e.victim.name])
+        if node != where[e.victim.name]:
+            fail(f"preemption: {e.preemptor.name}'s victims span nodes")
+    if len(set(nominated.values())) != len(nominated) or not nominated:
+        fail(f"preemption: {len(nominated)} proposals on {len(set(nominated.values()))} nodes")
+    # the pass alone on the recorded inputs: bytes of a cold engine, then ms
+    fresh = port["TorchEngine"]()
+    torch.cuda.synchronize()
+    port["reset_transfers"]()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fresh.preempt(*inputs, k_cap=k_cap)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    h2d = port["transfers"]["h2d_bytes"]
+    ms, _ = wall_ms(torch, lambda: fresh.preempt(*inputs, k_cap=k_cap), n=5)
+    snapshot, pods, victims = inputs
+    emit({"phase": "host_preemption", "config": "host-10k full", "nodes": len(nodes),
+          "node_bucket": int(np.asarray(snapshot.allocatable).shape[0]),
+          "running": len(running), "victim_slots": int(np.asarray(victims.node).shape[0]),
+          "preemptors": len(preemptors), "k_cap": k_cap,
+          "proposals": len(nominated), "victims_evicted": len(evictor.evictions),
+          "pass_ms": statistics.median(ms), "pass_ms_runs": ms,
+          "peak_device_bytes": peak, "peak_over_resident_bytes": peak - base,
+          "h2d_bytes": h2d, "cycle_s": cycle_s, "bitwise_vs_cpu": True})
+    # the victims terminate (the informer's delete events reach the mirror)
+    gone = {e.victim.name for e in evictor.evictions}
+    for victim in [p for p in running if p.name in gone]:
+        running.remove(victim)
+        if sched.mirror is not None:
+            sched.mirror.apply_pod_event("DELETED", victim)
+    clock[0] += QUEUE_TICK_S
+    m2 = sched.run_cycle()
+    placed = {b.pod.name: b.node_name for b in sched.binder.bindings}
+    wrong = [k for k, node in nominated.items() if placed.get(k) != node]
+    if wrong:
+        fail(f"preemption: {len(wrong)} preemptors did not bind to their nominated "
+             f"nodes (first {wrong[0]}: {placed.get(wrong[0])} vs {nominated[wrong[0]]})")
+    emit({"phase": "host_preemption_rebind", "pods_bound": m2.pods_bound,
+          "on_nominated_node": len(nominated) - len(wrong)})
+
+
+def load_port() -> dict:
+    """The port's functions the phases call, by name (a CPU rehearsal
+    passes its own dict); fails when the port is not importable or
+    imports jax."""
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
         from kubernetes_scheduler_tpu_torch.device import reset_transfers, transfers
@@ -1825,8 +2203,11 @@ def main() -> None:
             fused_score_operands,
             make_affinity_state,
             make_snapshot,
+            preempt_on_host,
             snapshot_nbytes,
         )
+        from kubernetes_scheduler_tpu_torch.host.scheduler import RecordingEvictor, Scheduler
+        from kubernetes_scheduler_tpu_torch.host.types import Container, MatchExpression, Pod
         from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
         from kubernetes_scheduler_tpu_torch.ops.assign import (
             NEG,
@@ -1834,7 +2215,14 @@ def main() -> None:
             greedy_scan_operands,
         )
         from kubernetes_scheduler_tpu_torch.ops.score import alpha_beta
-        from kubernetes_scheduler_tpu_torch.sim import gen_cluster, gen_config, gen_pods
+        from kubernetes_scheduler_tpu_torch.sim import (
+            gen_cluster,
+            gen_config,
+            gen_host_cluster,
+            gen_host_pods,
+            gen_pods,
+        )
+        from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
         from kubernetes_scheduler_tpu_torch.utils.padding import pad_pod_batch
     except ImportError as e:
         fail(f"the port is not importable (run from the repository root): {e}")
@@ -1852,8 +2240,30 @@ def main() -> None:
         UTIL_SERIES=UTIL_SERIES, DOMAIN_TABLES=DOMAIN_TABLES, SnapshotDelta=SnapshotDelta,
         snapshot_nbytes=snapshot_nbytes, make_snapshot=make_snapshot,
         build_fused_layout=build_fused_layout, transfers=transfers,
-        reset_transfers=reset_transfers,
+        reset_transfers=reset_transfers, Scheduler=Scheduler,
+        RecordingEvictor=RecordingEvictor, SchedulerConfig=SchedulerConfig,
+        gen_host_cluster=gen_host_cluster, gen_host_pods=gen_host_pods, Pod=Pod,
+        Container=Container, MatchExpression=MatchExpression,
+        preempt_on_host=preempt_on_host, _build=_build,
     )
+    return port
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-tree", default=None,
+                    help="a checkout of an earlier commit (e09185f or later): time its "
+                         "K1, K2 and K4 beside this tree's")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA card")
+    port = load_port()
+    TorchEngine, _build = port["TorchEngine"], port["_build"]
+    gen_cluster, gen_config, gen_pods = port["gen_cluster"], port["gen_config"], port["gen_pods"]
 
     # ---- 1. device -------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1935,7 +2345,17 @@ def main() -> None:
     resident = run_resident(torch, port, snap, pods)
     emit({"phase": "resident_seconds", "seconds": time.perf_counter() - t0})
 
-    # ---- 13. the kernels line and the result ----------------------------
+    # ---- 13. the port's own host loop at 10,000 nodes ---------------------
+    t0 = time.perf_counter()
+    host = run_host_loop(torch, port)
+    emit({"phase": "host_loop_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 14. preemption through the host loop ------------------------------
+    t0 = time.perf_counter()
+    run_host_preemption(torch, port)
+    emit({"phase": "host_preemption_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 15. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -1953,6 +2373,8 @@ def main() -> None:
             "multi_scorer_launches": {k: v[name] for k, v in multi.items()},
             "resident_launches": {path: {run: counts[name] for run, counts in runs.items()}
                                   for path, runs in resident.items()},
+            "host_loop_launches": {run: [c[name] for c in cycles]
+                                   for run, cycles in host.items()},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

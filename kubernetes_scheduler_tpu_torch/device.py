@@ -3,7 +3,8 @@
 Every entry point takes `device=`. With no argument it runs on the CUDA
 card and raises when there is none: the port never falls back to the CPU
 on its own. Tests and CPU callers pass `device="cpu"` explicitly.
-Host data reaches the card through `to_device`, which counts the bytes.
+Host data reaches the card through `to_device`, which counts the bytes;
+results come back through `to_host`, one explicit read per result.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 # host-to-device copies made through to_device since the last
 # reset_transfers() (chip_smoke.py reads them per cycle)
-transfers = {"h2d_bytes": 0, "h2d_copies": 0}
+transfers = {"h2d_bytes": 0, "h2d_copies": 0, "d2h_reads": 0}
 
 
 def reset_transfers() -> None:
@@ -49,3 +50,22 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     transfers["h2d_bytes"] += t.numel() * t.element_size()
     transfers["h2d_copies"] += 1
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(*leaves):
+    """numpy copies of result leaves (tensors on any device, or host
+    arrays), as one explicit device-to-host read: the host loop's only
+    wait on the card for an engine result. One leaf gives one array,
+    several a tuple. A read that touches a CUDA tensor counts in
+    `transfers["d2h_reads"]`."""
+    out = []
+    cuda = False
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            cuda = cuda or x.device.type == "cuda"
+            out.append(x.detach().cpu().numpy())
+        else:
+            out.append(np.asarray(x))
+    if cuda:
+        transfers["d2h_reads"] += 1
+    return out[0] if len(out) == 1 else tuple(out)

@@ -25,9 +25,11 @@ Resident state: TorchEngine retains the cluster snapshot on the device
 folds a SnapshotDelta's changed rows into it in place, with the kernels'
 node operands kept beside it as a FusedLayout (schedule_batch(layout=)).
 
-Ported: every option of the reference's schedule_batch and LocalEngine's
-surface but `preempt`, which raises NotImplementedError naming the
-ROADMAP item that adds it.
+Preemption: preempt_batch (TorchEngine.preempt) is the PostFilter pass,
+victim prefix tables and the candidate choice of ops/preempt.py.
+
+Ported: every option of the reference's schedule_batch and all of
+LocalEngine's surface.
 """
 
 from __future__ import annotations
@@ -1164,6 +1166,90 @@ def schedule_windows(
     return run_windows_scan(snapshot, pods_windows, cycle)
 
 
+VICTIM_DTYPES = {
+    "node": _I32, "prio": _I32, "req": _F32, "mask": _BOOL, "start": _I32,
+    "matches": _BOOL, "anti": _BOOL,
+}
+
+
+def victims_on(victims, device: torch.device):
+    """An ops.preempt.VictimArrays (of any NamedTuple type with its
+    fields; numpy or tensor leaves) with every leaf on `device` in its
+    dtype; host leaves upload through device.to_device. None leaves stay
+    None."""
+    from kubernetes_scheduler_tpu_torch.ops.preempt import VictimArrays
+
+    return VictimArrays(**{
+        name: None if x is None else as_leaf(x, VICTIM_DTYPES[name], device)
+        for name, x in zip(VictimArrays._fields, victims)
+    })
+
+
+def preempt_batch(snapshot: SnapshotArrays, pods: PodBatch, victims, *, k_cap: int):
+    """The preemption pass, upstream PostFilter parity (reference:
+    engine.preempt_batch): static feasibility against FULL allocatable
+    (could this pod ever fit here after evictions), per-node victim
+    prefix tables, and the candidate choice in upstream's
+    pickOneNodeForPreemption order (ops/preempt.py). `victims` is an
+    ops.preempt.VictimArrays on the snapshot's device; the host sets
+    non-evictable pods (budget-exhausted, terminating, nomination
+    reservations) to node -1. Plain PyTorch; no host sync."""
+    from kubernetes_scheduler_tpu_torch.ops.preempt import (
+        PreemptAffinity,
+        build_victim_tables,
+        preempt_candidates,
+    )
+
+    # node-local families only: the count-based ones are evaluated per
+    # (pod, node, k) against the counts as adjusted by the candidate
+    # evictions (ops/preempt.affinity_after_evictions)
+    static_ok = compute_feasibility(
+        snapshot._replace(requested=torch.zeros_like(snapshot.requested)),
+        pods,
+        include_pod_affinity=False,
+    )
+    s = snapshot.domain_counts.shape[1]
+    m = victims.req.shape[0]
+    dev = snapshot.allocatable.device
+    matches = victims.matches if victims.matches is not None else torch.zeros(
+        (m, s), dtype=torch.bool, device=dev)
+    anti = victims.anti if victims.anti is not None else torch.zeros(
+        (m, s), dtype=torch.bool, device=dev)
+    tables = build_victim_tables(
+        victims.node, victims.prio, victims.req, victims.mask,
+        n_nodes=snapshot.allocatable.shape[0], k_cap=k_cap,
+        victim_start=victims.start, victim_matches=matches, victim_anti=anti,
+    )
+    affinity = PreemptAffinity(
+        domain_counts=snapshot.domain_counts,
+        avoid_counts=snapshot.avoid_counts,
+        domain_id=snapshot.domain_id,
+        node_mask=snapshot.node_mask,
+        affinity_sel=pods.affinity_sel,
+        anti_affinity_sel=pods.anti_affinity_sel,
+        pod_matches=pods.pod_matches,
+        spread_sel=pods.spread_sel,
+        spread_max=pods.spread_max,
+    )
+    return preempt_candidates(
+        pods.request, pods.priority, pods.pod_mask, static_ok,
+        compute_free_capacity(snapshot), tables, affinity=affinity,
+    )
+
+
+def preempt_on_host(snapshot, pods, victims, *, k_cap: int):
+    """The in-host preemption pass (the host loop's fallback when the
+    engine's preempt is missing or fails, reference: the host's CPU jax
+    call of engine.preempt_batch): preempt_batch on CPU tensors of the
+    same inputs."""
+    cpu = torch.device("cpu")
+    snap = SnapshotArrays(*[
+        as_leaf(x, SNAPSHOT_DTYPES[f], cpu) for f, x in zip(SnapshotArrays._fields, snapshot)
+    ])
+    batch = PodBatch(*[as_leaf(x, POD_DTYPES[f], cpu) for f, x in zip(PodBatch._fields, pods)])
+    return preempt_batch(snap, batch, victims_on(victims, cpu), k_cap=k_cap)
+
+
 class ResidentMismatch(RuntimeError):
     """A SnapshotDelta arrived for resident state this engine does not
     hold (wrong epoch, shape or layout churn, or no state at all); the
@@ -1304,6 +1390,9 @@ class TorchEngine:
         self._trace_id = 0
         self._profile_left = 0
         self._profile_dir: str | None = None
+        # calls of preempt() (the host loop's preemption pass on this
+        # engine, against its in-host fallback)
+        self.preempt_calls = 0
 
     # ---- telemetry context --------------------------------------------
 
@@ -1457,9 +1546,14 @@ class TorchEngine:
         return True
 
     def preempt(self, snapshot, pods, victims, *, k_cap: int):
-        raise NotImplementedError(
-            "preemption is not ported to the PyTorch engine yet: "
-            "ROADMAP queue A, item 6 (preemption)"
+        """preempt_batch on this engine's device: host leaves of the
+        snapshot, the preemptors' batch and the victims upload through
+        the uniform cache and device.to_device. Counted in
+        `preempt_calls`."""
+        self.preempt_calls += 1
+        return preempt_batch(
+            self._consts.swap(snapshot), self._consts.swap(pods),
+            victims_on(victims, self.device), k_cap=k_cap,
         )
 
     def healthy(self) -> bool:

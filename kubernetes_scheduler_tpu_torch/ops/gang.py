@@ -1,5 +1,6 @@
 """Gang co-scheduling, all-or-nothing pod groups (counterpart of
-kubernetes_scheduler_tpu/ops/gang.py, `gang_mask_assign`).
+kubernetes_scheduler_tpu/ops/gang.py: `gang_mask_assign`, `decode_masked`
+and the host's numpy mirror `mask_partial_gangs_np`).
 
 A gang whose assigned-member count falls short of its declared size has
 every assigned member's placement rescinded before the result leaves the
@@ -9,9 +10,16 @@ so the would-have node stays decodable; -1 stays "no node found".
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 GANG_MASKED_BASE = -2
+
+
+def decode_masked(idx):
+    """The node a masked (<= -2) entry would have been assigned to. Works
+    on numpy arrays and tensors alike (pure arithmetic; its own inverse)."""
+    return GANG_MASKED_BASE - idx
 
 
 def gang_mask_assign(
@@ -51,3 +59,29 @@ def gang_mask_assign(
         n_assigned,
     )
     return new_idx, free_after, n_assigned
+
+
+def mask_partial_gangs_np(gang_id, gang_size, node_idx):
+    """Host (numpy) mirror of the all-or-nothing rule, the unconditional
+    backstop in host.scheduler._resolve_gangs: against a gang-capable
+    engine it is the identity (gang_mask_assign already rescinded the
+    placements), against a gang-blind one it gives the same masked vector
+    the engine would have, bitwise. Returns (node_idx', newly_masked)."""
+    idx = np.asarray(node_idx).copy()
+    gid = np.asarray(gang_id)
+    gsz = np.asarray(gang_size)
+    n = min(idx.shape[0], gid.shape[0])
+    newly = 0
+    for g in np.unique(gid[:n]):
+        if g < 0:
+            continue
+        rows = np.flatnonzero(gid[:n] == g)
+        got = idx[rows]
+        cnt = int((got >= 0).sum())
+        # per-lane size check, exactly like gang_mask_assign's
+        # `cnt[gang] >= gang_size` select: members declaring inconsistent
+        # sizes mask lane-wise, so the mirror stays bitwise on any input
+        bad = rows[(got >= 0) & (cnt < gsz[rows])]
+        idx[bad] = GANG_MASKED_BASE - idx[bad]
+        newly += int(bad.size)
+    return idx, newly

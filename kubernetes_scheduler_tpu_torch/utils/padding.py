@@ -1,12 +1,23 @@
-"""Padding of the pod axis (counterpart of
-kubernetes_scheduler_tpu/utils/padding.py, `pad_axis` and `pad_pod_batch`):
-a backlog is padded with pod_mask=False rows to a multiple of the window
-before stack_windows. Works on numpy arrays and torch tensors alike."""
+"""Bucketed padding (counterpart of kubernetes_scheduler_tpu/utils/padding.py):
+the host rounds the node and pod axes up to power-of-two buckets
+(`bucket_size`), so device buffers and kernel shapes repeat from cycle to
+cycle, and a backlog is padded with pod_mask=False rows to a multiple of
+the window before stack_windows. Works on numpy arrays and torch tensors
+alike."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def bucket_size(n: int, *, floor: int = 8, multiple: int = 8) -> int:
+    """Smallest power-of-two bucket >= n, at least `floor`, a multiple of
+    `multiple`."""
+    b = floor
+    while b < n:
+        b *= 2
+    return int(np.ceil(b / multiple) * multiple)
 
 
 def pad_axis(arr, size: int, axis: int = 0, fill=0):

@@ -111,21 +111,39 @@ def test_torch_generator_matches_reference(features):
     ids=["softmax-kernel", "plugins-kernel"],
 )
 def test_torch_unported_options_raise(kw, error, match):
-    """Every option of schedule_batch is ported (preemption, the one engine
-    call still to port, is the next test's); softmax and score plugins
-    are refused on the kernel path, as the reference refuses them."""
+    """Every option of schedule_batch is ported (preemption is the next
+    test's); softmax and score plugins are refused on the kernel path, as
+    the reference refuses them."""
     _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
     with pytest.raises(error, match=match):
         engine.schedule_batch(ts, tp, **kw)
 
 
 def test_torch_engine_eviction_not_ported():
-    """TorchEngine.preempt, the one engine call still to port (ROADMAP
-    queue A, item 6), raises rather than guess. (The name avoids the
-    substring that tests/conftest.py marks slow.)"""
-    _, _, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        TorchEngine(device="cpu").preempt(ts, tp, None, k_cap=4)
+    """TorchEngine.preempt, once the one engine call left to port (ROADMAP
+    queue A, item 6), now runs the pass and equals the reference's
+    preempt_batch on the same cluster (tests/test_torch_preemption.py
+    holds it in full). (The name avoids the substring that
+    tests/conftest.py marks slow.)"""
+    import jax.numpy as jnp
+
+    from kubernetes_scheduler_tpu.ops.preempt import VictimArrays as RefVictims
+    from kubernetes_scheduler_tpu_torch.ops.preempt import VictimArrays
+
+    rs, rp, ts, tp = _problem("gpu", n_nodes=16, n_pods=8)
+    rs, ts = rs._replace(requested=rs.allocatable), ts._replace(requested=ts.allocatable)
+    rng = np.random.default_rng(0)
+    v = dict(node=rng.integers(0, 16, 32).astype(np.int32),
+             prio=rng.integers(-5, 5, 32).astype(np.int32),
+             req=np.asarray(rp.request)[rng.integers(0, 8, 32)],
+             mask=np.ones(32, bool), start=rng.integers(0, 99, 32).astype(np.int32))
+    want = ref.preempt_batch(rs, rp, RefVictims(**{k: jnp.asarray(x) for k, x in v.items()}),
+                             k_cap=4)
+    got = TorchEngine(device="cpu").preempt(ts, tp, VictimArrays(**v), k_cap=4)
+    for name in ("node", "victims", "n_victims"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    assert (got.node.numpy() >= 0).any()
 
 
 def test_torch_plain_flag_matches_default_on_cpu():

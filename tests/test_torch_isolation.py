@@ -68,6 +68,60 @@ def test_torch_port_runs_a_cpu_cycle_with_jax_blocked():
     assert proc.stdout.startswith("ok")
 
 
+def test_torch_port_runs_a_host_cycle_with_jax_blocked():
+    """The port's own Scheduler (queue, snapshot builder, mirror,
+    resilience, preemption) binds pods on TorchEngine(device='cpu') in a
+    process where jax and the JAX package cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_scheduler_tpu'] = None\n"
+        "from kubernetes_scheduler_tpu_torch import TorchEngine\n"
+        "from kubernetes_scheduler_tpu_torch.host.scheduler import ("
+        "RecordingEvictor, Scheduler)\n"
+        "from kubernetes_scheduler_tpu_torch.sim import gen_host_cluster, gen_host_pods\n"
+        "from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig\n"
+        "nodes, advisor = gen_host_cluster(32, seed=0)\n"
+        "sched = Scheduler(SchedulerConfig(batch_window=16, adaptive_dispatch=False,"
+        " min_device_work=1), advisor=advisor, evictor=RecordingEvictor(),"
+        " list_nodes=lambda: nodes, list_running_pods=lambda: [],"
+        " engine=TorchEngine(device='cpu'))\n"
+        "for pod in gen_host_pods(24, seed=1):\n"
+        "    sched.submit(pod)\n"
+        "m = sched.run_cycle()\n"
+        "assert m.pods_bound > 0 and m.engine_seconds > 0, m\n"
+        "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v]\n"
+        "print('ok', m.pods_bound)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_torch_host_default_engine_wants_cuda():
+    from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler
+    from kubernetes_scheduler_tpu_torch.sim import gen_host_cluster
+    from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
+
+    nodes, advisor = gen_host_cluster(4, seed=0)
+    kw = dict(advisor=advisor, list_nodes=lambda: nodes, list_running_pods=lambda: [])
+    if torch.cuda.is_available():
+        assert Scheduler(SchedulerConfig(), **kw).engine.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scheduler(SchedulerConfig(), **kw)
+    for opts, item in (({"policy": "learned"}, "item 9"),
+                       ({"sharded_engine": True}, "item 10"),
+                       ({"trace_path": "t"}, "item 7"),
+                       ({"span_path": "s"}, "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            Scheduler(SchedulerConfig(**opts), engine=TorchEngine(device="cpu"), **kw)
+
+
 def test_torch_entry_points_default_to_cuda():
     alloc = np.ones((4, 3), np.float32)
     z = np.zeros(4, np.float32)
