@@ -90,9 +90,39 @@ Phases; the first failure exits non-zero and no result line is printed:
    pods (run_host_preemption): the pass on the card, bitwise its CPU run,
    victims below their preemptors, one proposal a node, its ms, peak
    memory and bytes; then the preemptors bind to their nominated nodes;
-15. the kernels line, then the result line.
+15. the flight recorder, spans and the journal-replay gate at 10,000
+   nodes (run_journal): the bench's traced shape (8,192 pods, one
+   1,024-pod window a cycle, pipeline_depth 1, resident_state on)
+   drained untraced and with trace_path and span_path (pods/s of both,
+   bindings equal, no record or span dropped); the journal replayed
+   through TorchEngine() in all four modes (serial and pipelined, full
+   and resident uploads) with 0 binding diffs, every device cycle
+   replayed, pods/s per mode; two recorded replays with a zero trace
+   diff; phase 13's 8-window cycle recorded as a backlog record and
+   replayed; the stage table of the span files (trace.analyze, every
+   stage in SHIPPED_SPANS, shares summing to 100); the JAX package's
+   committed journals (tests/torch_fixtures, 1,000 nodes) replayed on
+   the card: the auction's with 0 diffs, greedy's with 0 or counted
+   near-tie flips;
+16. the fleet-shared engine and shadow serving (run_fleet_and_shadow):
+   ReplicaFleet(n_replicas=4) at 10,000 nodes over 8,192 pods in 8
+   namespaces, one window a cycle, pipelined, drained by rounds, on one
+   shared TorchEngine and on four private ones: union pod -> node maps
+   equal, the pool coalesced (fewer than 4 device dispatches a round),
+   uploaded in full once and then by delta or dedup, no double bind,
+   pods/s of both; ShadowScheduler on TorchEngine() over phase 15's
+   journal with the primary's config (0 divergence, every record
+   applied), and a divergent candidate twice (bindings moved, the same
+   both times);
+17. scenarios (run_scenarios): soak, compound-storm (faults on) and
+   replica-conflict-storm (shared engine) at 4,096 nodes, each run twice
+   with seed 0 (equal summaries, zero trace diff), each journal
+   replayed with 0 diffs, and at 64 nodes the card's journal equal in
+   decisions to the port's CPU run; seconds and pods bound of each;
+18. the kernels line (with the launches of phases 12-17), then the
+   result line.
 
-Phases 7-14 print their seconds. Timed runs are medians of 3; equality
+Phases 7-17 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, and nothing of JAX.
@@ -113,6 +143,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2184,6 +2215,465 @@ def run_host_preemption(torch, port, n_nodes: int = HOST_NODES) -> None:
           "on_nominated_node": len(nominated) - len(wrong)})
 
 
+# ---- phases 15-17: journal, replay, spans, fleet, shadow, scenarios ---------
+
+# journals, span files and replays of phases 15-17, inside the checkout
+# (git-ignored), removed when the run ends
+SMOKE_WORK = "_smoke_work"
+TRACE_CFG = dict(HOST_CFG, max_windows_per_cycle=1, pipeline_depth=1, resident_state=True)
+REPLAY_MODES = (("serial", False), ("serial", True), ("pipelined", False), ("pipelined", True))
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+REF_JOURNALS = {"auction": "ref-auction", "greedy": "ref-greedy"}
+FLEET_REPLICAS = 4
+FLEET_NAMESPACES = 8
+FLEET_CFG = dict(HOST_CFG, max_windows_per_cycle=1, pipeline_depth=1)
+SCENARIO_NODES = 4096
+SCENARIO_SMALL_NODES = 64
+# scenario -> (intensity, SchedulerConfig overrides on top of its own).
+# Cut to keep each run under ~30 s: soak at intensity 0.25 took 67 s a run
+# on an H100 (700 W), 17 s at 0.125; its time grows with the square of the
+# running pods (ScenarioWorld.fail_node takes each evicted pod out of the
+# running list with list.remove)
+SCENARIO_RUNS = {
+    "soak": (0.125, {}),
+    "compound-storm": (0.5, {}),
+    "replica-conflict-storm": (1.0, {"shared_engine": True}),
+}
+
+
+def launches_of(runs: dict, name: str) -> dict:
+    """One kernel's count from each run of a {run: launches} dict (nested
+    dicts of runs flatten to run/sub keys)."""
+    out = {}
+    for run, counts in runs.items():
+        if name in counts:
+            out[run] = counts[name]
+        else:
+            out.update({f"{run}/{k}": v for k, v in launches_of(counts, name).items()})
+    return out
+
+
+def counted(torch, port, fn):
+    """(fn(), K1-K4 launches during it): the counts set to 0 just before
+    and read just after, behind a synchronise on both sides."""
+    torch.cuda.synchronize()
+    port["fused"].reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(port["fused"].launches)
+
+
+def record_drain(torch, port, nodes, advisor, cfg, n_pods, seed=1):
+    """One Scheduler on TorchEngine() drains gen_host_pods(n_pods, seed)
+    under `cfg`: (scheduler, cycles, bindings, drain wall seconds,
+    launches summed over the cycles, each counted by drain_cycles)."""
+    running = []
+    sched, clock = host_scheduler(port, port["TorchEngine"](), nodes, advisor, running, cfg)
+    for pod in host_backlog(port, n_pods, seed):
+        sched.submit(pod)
+    t0 = time.perf_counter()
+    cycles = drain_cycles(torch, port, sched, clock, running)
+    wall = time.perf_counter() - t0
+    ln = {k: sum(c[1][k] for c in cycles) for k in port["fused"].launches}
+    check_device_route("traced drain", sched, cycles)
+    if sched.recorder is not None:
+        sched.recorder.close()
+    if sched.spans is not None:
+        sched.spans.close()
+    binds = [(b.pod.name, b.node_name) for b in sched.binder.bindings]
+    return sched, cycles, binds, wall, ln
+
+
+def replay_checked(torch, port, path, n_cycles, what, **kw):
+    """replay_journal on a fresh TorchEngine(); fails on a binding diff
+    or a replayed count other than n_cycles. Returns (report, launches)."""
+    rep, ln = counted(torch, port, lambda: port["replay_journal"](
+        str(path), engine=port["TorchEngine"](), **kw))
+    if rep.binding_diffs or rep.replayed != n_cycles:
+        fail(f"{what}: {rep.binding_diffs} binding diffs, {rep.replayed} of {n_cycles} "
+             f"cycles replayed ({rep.to_dict()['diff_cycles'][:3]})")
+    return rep, ln
+
+
+def stage_table(port, span_dir) -> dict:
+    """The span report of `span_dir` (trace.analyze.build_report): each
+    attributed stage's p50 ms and share of the cycle; fails unless every
+    emitted stage is in SHIPPED_SPANS and the shares sum to 100."""
+    events = [e for e in port["read_spans"](str(span_dir)) if e.get("ph") == "X"]
+    names = {e["name"] for e in events}
+    if not names <= set(port["SHIPPED_SPANS"]):
+        fail(f"spans: unregistered stages {sorted(names - set(port['SHIPPED_SPANS']))}")
+    report = port["build_report"](str(span_dir))
+    shares = report["attribution_pct"]
+    if abs(sum(shares.values()) - 100.0) > 0.5:
+        fail(f"spans: stage shares sum to {sum(shares.values())}")
+    table = {s: {"p50_ms": report["stages"].get(s, {}).get("p50_ms"), "share_pct": pct}
+             for s, pct in shares.items()}
+    # stages outside the attribution (host_overlap runs beside the engine
+    # step in the reference's pipelined loop): their p50 alone
+    table.update({s: {"p50_ms": d["p50_ms"], "share_pct": None}
+                  for s, d in report["stages"].items() if s not in shares})
+    return {"cycles": report["cycles"], "cycle_p50_ms": report["cycle_ms"]["p50_ms"],
+            "stages": table, "share_sum": sum(shares.values())}
+
+
+def near_tie_flip(torch, port, snapshot, pods, kw, recorded_idx, replay_idx) -> bool:
+    """Whether a greedy replay's first difference from the recording (in
+    priority order) is a near-tie: the recorded and the replayed node
+    score within 2 score_tolerance of each other on the card's scores."""
+    eng = port["TorchEngine"]()
+    snap, tpods = eng._consts.swap(snapshot), eng._consts.swap(pods)
+    res = port["schedule_batch"](snap, tpods, **kw)
+    order = port["assign"]._priority_order(tpods.priority, tpods.pod_mask).cpu()
+    first = next(int(i) for i in order if recorded_idx[i] != replay_idx[i])
+    gi, wi = int(replay_idx[first]), int(recorded_idx[first])
+    if gi < 0 or wi < 0:
+        return False
+    tol = score_tolerance(snap, tpods, res.scores, res.feasible, kw)[first]
+    row = res.scores[first].cpu().double()
+    return abs(float(row[gi]) - float(row[wi])) <= 2 * float(max(tol[gi], tol[wi]))
+
+
+def replay_reference_journal(torch, port, assigner: str) -> dict:
+    """One committed reference journal (tests/torch_fixtures, recorded by
+    the JAX package on the CPU) replayed on the card, serial with full
+    uploads and pipelined with resident ones: the auction's must give 0
+    diffs; greedy's may differ only at counted near-tie flips."""
+    path = FIXTURES / REF_JOURNALS[assigner]
+    if not path.is_dir():
+        fail(f"reference journal {path} is missing")
+    out = {}
+    for mode, resident in (("serial", False), ("pipelined", True)):
+        rep, ln = counted(torch, port, lambda: port["replay_journal"](
+            str(path), engine=port["TorchEngine"](), mode=mode, resident=resident))
+        flips = 0
+        for d in rep.diffs:
+            if assigner != "greedy":
+                break
+            rec, snapshot = next((r, s) for r, s in port["reconstruct_cycles"](str(path))
+                                 if r.get("seq") == d.seq)
+            pods = port["pod_batch_from_record"](rec["pods"])
+            kw = port["engine_kw_from_record"](rec)
+            want = np.asarray(rec["assign"]["node_idx"])
+            got = port["TorchEngine"]().schedule_batch(snapshot, pods, **kw).node_idx.cpu()
+            if not near_tie_flip(torch, port, snapshot, pods, kw, want, got.numpy()):
+                fail(f"reference {assigner} journal: seq {d.seq} differs beyond a near-tie")
+            flips += 1
+        if rep.replayed != 2 or (rep.diffs and assigner != "greedy"):
+            fail(f"reference {assigner} journal ({mode}, resident={resident}): "
+                 f"{rep.to_dict()}")
+        out[f"{mode}{'_resident' if resident else ''}"] = {
+            "binding_diffs": rep.binding_diffs, "near_tie_flips": flips,
+            "pods_replayed": rep.pods_replayed, "seconds": rep.seconds, "launches": ln}
+    return out
+
+
+def run_journal(torch, port, work: Path) -> dict:
+    """Phase 15: the flight recorder, spans and the journal-replay gate at
+    host-10k through the port's Scheduler on TorchEngine(): the bench's
+    traced shape (bench.py:738-746; gen_host_cluster(10_000, seed=0),
+    8,192 pods of gen_host_pods(seed=1), one 1,024-pod window a cycle,
+    pipeline_depth 1, resident_state on, the engine path pinned), drained
+    untraced and with trace_path and span_path set, in turns (untraced,
+    traced, untraced, traced; bindings equal, no record or span dropped,
+    one record a cycle); the first traced run's journal replayed
+    through TorchEngine() in all four modes (0 binding diffs, every
+    device cycle replayed, pods/s and launches per mode); two recorded
+    replays diffing to zero (trace.inspect.diff); phase 13's 8-window
+    cycle recorded (a backlog record) and replayed; the span files
+    through trace.analyze.build_report (every stage shipped, shares
+    summing to 100); the committed reference journals replayed on the
+    card. Returns (launches per run, the traced journal's path)."""
+    nodes, advisor = port["gen_host_cluster"](HOST_NODES, seed=0)
+    journal, spans = work / "host10k", work / "host10k-spans"
+    runs, launches = {}, {}
+    for turn, traced in enumerate((False, True, False, True)):
+        cfg = dict(TRACE_CFG, **({"trace_path": str(journal) + "-2" * (turn > 1),
+                                  "span_path": str(spans) + "-2" * (turn > 1)}
+                                 if traced else {}))
+        sched, cycles, binds, wall, ln = record_drain(
+            torch, port, nodes, advisor, cfg, HOST_BACKLOG)
+        name = ("traced" if traced else "untraced") + ("_2" if turn > 1 else "")
+        launches[f"drain_{name}"] = ln
+        bound = sum(m.pods_bound for m, _, _ in cycles)
+        runs[name] = (binds, len(cycles))
+        row = {"phase": f"journal_drain_{name}", "config": "host-10k", "nodes": HOST_NODES,
+               "pods": HOST_BACKLOG, "cycles": len(cycles), "pods_bound": bound,
+               "pods_per_s": bound / wall, "drain_s": wall,
+               "cycle_pods_per_s": bound / sum(m.cycle_seconds for m, _, _ in cycles),
+               "cycle_p50_ms": float(np.percentile(
+                   [m.cycle_seconds for m, _, _ in cycles], 50)) * 1e3,
+               "launches": ln}
+        if traced:
+            rec, sp = sched.recorder, sched.spans
+            if rec.records_dropped or sp.spans_dropped:
+                fail(f"journal: {rec.records_dropped} records and {sp.spans_dropped} span "
+                     "sets dropped on a clean run")
+            if rec.cycles_recorded != len(cycles):
+                fail(f"journal: {rec.cycles_recorded} records for {len(cycles)} cycles")
+            row.update(records=rec.cycles_recorded, trace_bytes=rec.bytes_written,
+                       recorder_s=rec.seconds_spent, spans_written=sp.spans_written,
+                       records_dropped=0, spans_dropped=0)
+        emit(row)
+    if any(b != runs["untraced"][0] for b, _ in runs.values()):
+        fail("journal: a traced drain's bindings differ from the untraced drain's")
+    n_dev = runs["traced"][1]
+    st = port["inspect"].stats(str(journal))
+    if st["by_path"] != {"device": n_dev} or st["delta_records"] < 1:
+        fail(f"journal: unexpected records {st}")
+    for mode, resident in REPLAY_MODES:
+        rep, ln = replay_checked(torch, port, journal, n_dev,
+                                 f"replay {mode} resident={resident}", mode=mode,
+                                 resident=resident)
+        key = f"replay_{mode}{'_resident' if resident else ''}"
+        launches[key] = ln
+        emit({"phase": f"journal_{key}", "cycles": rep.replayed, "binding_diffs": 0,
+              "pods_replayed": rep.pods_replayed, "seconds": rep.seconds,
+              "pods_per_s": rep.pods_replayed / rep.seconds, "launches": ln})
+    a, b = work / "replay-a", work / "replay-b"
+    replay_checked(torch, port, journal, n_dev, "recorded replay a", record_path=str(a))
+    replay_checked(torch, port, journal, n_dev, "recorded replay b", mode="pipelined",
+                   resident=True, record_path=str(b))
+    for x, y in ((a, b), (journal, a)):
+        d = port["inspect"].diff(str(x), str(y))
+        if d["differences"] or d["extra_records_a"] or d["extra_records_b"]:
+            fail(f"trace diff {x.name} vs {y.name}: {d}")
+    emit({"phase": "journal_trace_diff", "records_compared": n_dev, "differences": 0})
+    # phase 13's 8-window cycle as one backlog record
+    backlog = work / "host10k-backlog"
+    _, cycles, _, _, _ = record_drain(torch, port, nodes, advisor,
+                                      dict(HOST_CFG, trace_path=str(backlog)), HOST_BACKLOG,
+                                      seed=2)
+    st = port["inspect"].stats(str(backlog))
+    if st["by_path"].get("backlog") != len(cycles) or not cycles:
+        fail(f"journal: the 8-window cycle recorded {st['by_path']}")
+    for resident in (False, True):
+        rep, ln = replay_checked(torch, port, backlog, len(cycles),
+                                 f"backlog replay resident={resident}", resident=resident)
+        launches[f"backlog_replay{'_resident' if resident else ''}"] = ln
+    emit({"phase": "journal_backlog_replay", "windows": N_WINDOWS, "cycles": len(cycles),
+          "binding_diffs": 0, "launches": ln})
+    emit({"phase": "journal_span_report", **stage_table(port, spans)})
+    refs = {a: replay_reference_journal(torch, port, a) for a in REF_JOURNALS}
+    emit({"phase": "journal_reference_replay", "nodes": 1000, "cycles": 2,
+          "pods": 2 * WINDOW, **refs})
+    launches["reference_replays"] = {
+        f"{a}_{m}": r["launches"] for a, rs in refs.items() for m, r in rs.items()}
+    return launches, journal
+
+
+def fleet_namespaces(port) -> list:
+    """FLEET_NAMESPACES tenant names, as many on each of the
+    FLEET_REPLICAS partitions (queue.namespace_partition)."""
+    per = FLEET_NAMESPACES // FLEET_REPLICAS
+    by_part = {p: [] for p in range(FLEET_REPLICAS)}
+    i = 0
+    while any(len(v) < per for v in by_part.values()):
+        ns = f"tenant-{i}"
+        part = port["namespace_partition"](ns, FLEET_REPLICAS)
+        if len(by_part[part]) < per:
+            by_part[part].append(ns)
+        i += 1
+    return [ns for p in range(FLEET_REPLICAS) for ns in by_part[p]]
+
+
+def fleet_drain(torch, port, nodes, advisor, pods, shared: bool):
+    """A ReplicaFleet of FLEET_REPLICAS Schedulers, each a TorchEngine()
+    (shared=False) or views of one SharedEnginePool over one TorchEngine()
+    (shared=True), drained round by round through run_round_split (every
+    replica dispatches before any completes), binds fed back as running
+    pods after each round. Returns (pod -> node map, evidence, rounds,
+    wall seconds, launches)."""
+    running = []
+    cfg = port["SchedulerConfig"](shared_engine=shared, **FLEET_CFG)
+    fleet = port["ReplicaFleet"](
+        cfg, n_replicas=FLEET_REPLICAS, advisor_factory=lambda i: advisor,
+        list_nodes=lambda: nodes, list_running_pods=lambda: running,
+        engine_factory=lambda i: port["TorchEngine"]())
+    for pod in pods:
+        fleet.submit(pod)
+    seen = [0] * FLEET_REPLICAS
+
+    def drain():
+        rounds = 0
+        while any(len(s.queue) or s._prefetched is not None for s in fleet.schedulers):
+            if rounds >= 64:
+                fail("fleet: the drain did not finish in 64 rounds")
+            fleet.run_round_split()
+            rounds += 1
+            for i, s in enumerate(fleet.schedulers):
+                running.extend(b.pod for b in s.binder.bindings[seen[i]:])
+                seen[i] = len(s.binder.bindings)
+        for s in fleet.schedulers:
+            s.drain_pipeline()
+        return rounds
+
+    t0 = time.perf_counter()
+    rounds, ln = counted(torch, port, drain)
+    wall = time.perf_counter() - t0
+    for s in fleet.schedulers:
+        check_device_route(f"fleet shared={shared}", s, [])
+    bound = {(b.pod.namespace, b.pod.name): b.node_name
+             for s in fleet.schedulers for b in s.binder.bindings}
+    return bound, fleet.evidence(), rounds, wall, ln
+
+
+def run_fleet_and_shadow(torch, port, journal: Path) -> dict:
+    """Phase 16: ReplicaFleet(n_replicas=4) at 10,000 nodes over 8,192 pods
+    in FLEET_NAMESPACES namespaces (2 a partition), one 1,024-pod window
+    a cycle, pipeline_depth 1, drained by rounds: shared_engine=True
+    (one TorchEngine behind the SharedEnginePool) against four private
+    TorchEngines. The union pod -> node maps must be equal; the pool must
+    have coalesced (coalesced_dispatches > 0, fewer than 4 device
+    dispatches a round), uploaded in full once, then by delta or dedup,
+    and no pod may be bound twice. Then ShadowScheduler on TorchEngine()
+    over phase 15's journal with the primary's config (0 divergence,
+    every record applied), and a divergent candidate (policy
+    least_allocated) twice (it moves bindings, the same way both times).
+    Returns the launches per run."""
+    nodes, advisor = port["gen_host_cluster"](HOST_NODES, seed=0)
+    names = fleet_namespaces(port)
+    out, launches = {}, {}
+    for shared in (True, False):
+        pods = host_backlog(port, HOST_BACKLOG, 5)
+        for k, pod in enumerate(pods):
+            pod.namespace = names[k % len(names)]
+        name = "shared" if shared else "private"
+        bound, ev, rounds, wall, ln = fleet_drain(torch, port, nodes, advisor, pods, shared)
+        out[name] = bound
+        launches[f"fleet_{name}"] = ln
+        if ev["double_binds"] or ev["total_binds"] != len(bound):
+            fail(f"fleet {name}: {ev['double_binds']} double binds, {ev['total_binds']} "
+                 f"binds for {len(bound)} pods")
+        row = {"phase": f"fleet_{name}", "config": "host-10k", "nodes": HOST_NODES,
+               "replicas": FLEET_REPLICAS, "namespaces": len(names), "pods": len(pods),
+               "pods_bound": len(bound), "rounds": rounds, "seconds": wall,
+               "pods_per_s": len(bound) / wall, "launches": ln,
+               "binds_per_replica": ev["binds_per_replica"]}
+        if shared:
+            st = ev["shared_engine"]
+            up = st["uploads"]
+            if not (st["coalesced_dispatches"] > 0
+                    and st["device_dispatches"] / rounds < FLEET_REPLICAS
+                    and up["full"] == 1 and up["delta"] + up["dedup"] > 0):
+                fail(f"fleet shared: the pool's evidence {st} over {rounds} rounds")
+            row.update(shared_engine=st, dispatches_per_round=st["device_dispatches"] / rounds)
+        emit(row)
+    if out["shared"] != out["private"]:
+        diff = sum(out["shared"].get(k) != v for k, v in out["private"].items())
+        fail(f"fleet: the shared engine's union map differs from the private fleet's at "
+             f"{diff} pods")
+    emit({"phase": "fleet_shared_vs_private", "pods": len(out["shared"]), "equal": True})
+    cfg = port["SchedulerConfig"](**TRACE_CFG)
+    n_records = port["inspect"].stats(str(journal))["records"]
+    t0 = time.perf_counter()
+    s, ln = counted(torch, port, lambda: port["ShadowScheduler"](
+        str(journal), cfg, engine=port["TorchEngine"]()).run())
+    launches["shadow_identical"] = ln
+    if (s["bindings_changed"] or s["divergence_ratio"] != 0.0 or s["candidate_errors"]
+            or s["records_applied"] != n_records):
+        fail(f"shadow, identical candidate: {s}")
+    emit({"phase": "shadow_identical", "records_applied": s["records_applied"],
+          "pods_compared": s["pods_compared"], "divergence_ratio": s["divergence_ratio"],
+          "candidate_engine_seconds": s["candidate_engine_seconds"],
+          "latency_ratio": s["latency_ratio"], "seconds": time.perf_counter() - t0,
+          "launches": ln})
+    keys = ("records_applied", "pods_compared", "bindings_changed", "divergence_ratio",
+            "gangs_diverged", "score_delta_mean")
+    div = []
+    for _ in range(2):
+        s = port["ShadowScheduler"](str(journal), port["SchedulerConfig"](
+            **dict(TRACE_CFG, policy="least_allocated")), engine=port["TorchEngine"]()).run()
+        div.append({k: s[k] for k in keys})
+    if div[0]["bindings_changed"] <= 0 or div[0] != div[1]:
+        fail(f"shadow, divergent candidate: {div}")
+    emit({"phase": "shadow_divergent", "policy": "least_allocated", **div[0],
+          "deterministic": True})
+    return launches
+
+
+def decisions_of(summary: dict) -> dict:
+    """A scenario summary without its wall-clock fields (seconds, rates,
+    the shared engine's execute seconds) and journal paths."""
+    out = {k: v for k, v in summary.items()
+           if k not in ("seconds", "pods_per_sec", "journal", "journals", "wall_s")}
+    if "shared_engine" in out:
+        out["shared_engine"] = {k: v for k, v in out["shared_engine"].items()
+                                if k != "execute_seconds"}
+    return out
+
+
+def scenario_journals(summary, path: Path) -> list:
+    return [Path(j) for j in summary.get("journals") or [path]]
+
+
+def run_scenarios(torch, port, work: Path) -> dict:
+    """Phase 17: soak, compound-storm (its fault plan on) and
+    replica-conflict-storm (shared_engine) at SCENARIO_NODES nodes on
+    TorchEngine(), each at its SCENARIO_RUNS intensity with a journal:
+    run twice with seed 0 (summaries equal, trace diff of the journals
+    zero), each journal replayed with 0 binding diffs; then at the
+    default 64 nodes the card's journal against the port's CPU run of
+    the same scenario (no decision difference: the scenarios run the
+    auction, whose tie jitter leaves no near-tie). Returns the launches
+    of each scenario's first run."""
+    launches = {}
+    for name, (intensity, overrides) in SCENARIO_RUNS.items():
+        cfg = port["scenario_config"]({**port["SCENARIOS"][name].config_overrides,
+                                       **overrides})
+        summaries = []
+        for k in ("a", "b"):
+            path = work / f"{name}-{k}"
+            t0 = time.perf_counter()
+            s, ln = counted(torch, port, lambda: port["run_scenario"](
+                name, n_nodes=SCENARIO_NODES, intensity=intensity, seed=0,
+                trace_path=str(path), config=cfg))
+            s["wall_s"] = time.perf_counter() - t0
+            if k == "a":
+                launches[name] = ln
+            summaries.append((s, path))
+        (sa, pa), (sb, pb) = summaries
+        if decisions_of(sa) != decisions_of(sb):
+            fail(f"scenario {name}: two runs of seed 0 differ")
+        replayed = 0
+        for ja, jb in zip(scenario_journals(sa, pa), scenario_journals(sb, pb), strict=True):
+            d = port["inspect"].diff(str(ja), str(jb))
+            if d["differences"] or d["extra_records_a"] or d["extra_records_b"]:
+                fail(f"scenario {name}: trace diff of two seed-0 runs {d}")
+            n_dev = sum(v for p, v in port["inspect"].stats(str(ja))["by_path"].items()
+                        if p in ("device", "backlog"))
+            rep, _ = replay_checked(torch, port, ja, n_dev, f"scenario {name} replay")
+            replayed += rep.replayed
+        if sa["pods_bound"] <= 0 or (port["SCENARIOS"][name].chaos and not sa["recovered"]):
+            fail(f"scenario {name}: {sa}")
+        small = {}
+        for device in ("cuda", "cpu"):
+            path = work / f"{name}-small-{device}"
+            small[device] = (port["run_scenario"](
+                name, n_nodes=SCENARIO_SMALL_NODES, seed=0, trace_path=str(path),
+                config=cfg, device=device), path)
+        for ja, jb in zip(scenario_journals(*small["cuda"]),
+                          scenario_journals(*small["cpu"]), strict=True):
+            d = port["inspect"].diff(str(ja), str(jb))
+            if d["differences"] or d["extra_records_a"] or d["extra_records_b"]:
+                fail(f"scenario {name}: the card's decisions at {SCENARIO_SMALL_NODES} "
+                     f"nodes differ from the CPU's ({d['differing'][:3]})")
+        row = {"phase": f"scenario_{name}", "nodes": SCENARIO_NODES, "intensity": intensity,
+               "config_overrides": overrides, "cycles": sa["cycles"],
+               "pods_submitted": sa["pods_submitted"], "pods_bound": sa["pods_bound"],
+               "seconds": sa["seconds"], "seconds_second_run": sb["seconds"],
+               "wall_s": sa["wall_s"], "cycles_replayed": replayed,
+               "fallback_cycles": sa["fallback_cycles"], "recovered": sa["recovered"],
+               "trace_diff_of_two_runs": 0, "card_vs_cpu_64_nodes": "equal",
+               "launches": launches[name]}
+        for key in ("faults_injected", "shared_engine", "bind_conflicts", "double_binds",
+                    "trace_records_dropped"):
+            if key in sa:
+                row[key] = sa[key]
+        emit(row)
+    return launches
+
+
 def load_port() -> dict:
     """The port's functions the phases call, by name (a CPU rehearsal
     passes its own dict); fails when the port is not importable or
@@ -2204,9 +2694,14 @@ def load_port() -> dict:
             make_affinity_state,
             make_snapshot,
             preempt_on_host,
+            schedule_batch,
             snapshot_nbytes,
         )
+        from kubernetes_scheduler_tpu_torch.host.observe import SHIPPED_SPANS
+        from kubernetes_scheduler_tpu_torch.host.queue import namespace_partition
+        from kubernetes_scheduler_tpu_torch.host.replica import ReplicaFleet
         from kubernetes_scheduler_tpu_torch.host.scheduler import RecordingEvictor, Scheduler
+        from kubernetes_scheduler_tpu_torch.host.shadow import ShadowScheduler
         from kubernetes_scheduler_tpu_torch.host.types import Container, MatchExpression, Pod
         from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
         from kubernetes_scheduler_tpu_torch.ops.assign import (
@@ -2222,6 +2717,19 @@ def load_port() -> dict:
             gen_host_pods,
             gen_pods,
         )
+        from kubernetes_scheduler_tpu_torch.sim.scenarios import (
+            SCENARIOS,
+            run,
+            scenario_config,
+        )
+        from kubernetes_scheduler_tpu_torch.trace import analyze, inspect
+        from kubernetes_scheduler_tpu_torch.trace.replay import (
+            engine_kw_from_record,
+            pod_batch_from_record,
+            reconstruct_cycles,
+            replay_journal,
+        )
+        from kubernetes_scheduler_tpu_torch.trace.spans import read_spans
         from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
         from kubernetes_scheduler_tpu_torch.utils.padding import pad_pod_batch
     except ImportError as e:
@@ -2244,7 +2752,13 @@ def load_port() -> dict:
         RecordingEvictor=RecordingEvictor, SchedulerConfig=SchedulerConfig,
         gen_host_cluster=gen_host_cluster, gen_host_pods=gen_host_pods, Pod=Pod,
         Container=Container, MatchExpression=MatchExpression,
-        preempt_on_host=preempt_on_host, _build=_build,
+        preempt_on_host=preempt_on_host, _build=_build, schedule_batch=schedule_batch,
+        SHIPPED_SPANS=SHIPPED_SPANS, namespace_partition=namespace_partition,
+        ReplicaFleet=ReplicaFleet, ShadowScheduler=ShadowScheduler, SCENARIOS=SCENARIOS,
+        run_scenario=run, scenario_config=scenario_config, build_report=analyze.build_report,
+        inspect=inspect, replay_journal=replay_journal, reconstruct_cycles=reconstruct_cycles,
+        pod_batch_from_record=pod_batch_from_record,
+        engine_kw_from_record=engine_kw_from_record, read_spans=read_spans,
     )
     return port
 
@@ -2355,7 +2869,24 @@ def main() -> None:
     run_host_preemption(torch, port)
     emit({"phase": "host_preemption_seconds", "seconds": time.perf_counter() - t0})
 
-    # ---- 15. the kernels line and the result ----------------------------
+    # ---- 15-17. journal and replay, fleet and shadow, scenarios ------------
+    work = Path(__file__).resolve().parent / SMOKE_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        journal_launches, journal = run_journal(torch, port, work)
+        emit({"phase": "journal_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        fleet_launches = run_fleet_and_shadow(torch, port, journal)
+        emit({"phase": "fleet_shadow_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        scenario_launches = run_scenarios(torch, port, work)
+        emit({"phase": "scenarios_seconds", "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 18. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -2375,6 +2906,9 @@ def main() -> None:
                                   for path, runs in resident.items()},
             "host_loop_launches": {run: [c[name] for c in cycles]
                                    for run, cycles in host.items()},
+            "journal_launches": launches_of(journal_launches, name),
+            "fleet_shadow_launches": launches_of(fleet_launches, name),
+            "scenario_launches": launches_of(scenario_launches, name),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -10,30 +10,35 @@ Entry points run on the CUDA card unless the caller passes
 `device="cpu"`; they never fall back to the CPU on their own.
 """
 
-from kubernetes_scheduler_tpu_torch.device import resolve_device
-from kubernetes_scheduler_tpu_torch.engine import (
-    PodBatch,
-    ScheduleResult,
-    SnapshotArrays,
-    TorchEngine,
-    WindowsResult,
-    make_pod_batch,
-    make_snapshot,
-    schedule_batch,
-    schedule_windows,
-    stack_windows,
-)
+# the exports resolve lazily: importing them pulls in torch, which the
+# journal and span tools (trace.inspect, .spans, .analyze, .trend) must
+# not need just for the package import
+_EXPORTS = {
+    "resolve_device": "kubernetes_scheduler_tpu_torch.device",
+    **{
+        name: "kubernetes_scheduler_tpu_torch.engine"
+        for name in (
+            "PodBatch",
+            "ScheduleResult",
+            "SnapshotArrays",
+            "TorchEngine",
+            "WindowsResult",
+            "make_pod_batch",
+            "make_snapshot",
+            "schedule_batch",
+            "schedule_windows",
+            "stack_windows",
+        )
+    },
+}
 
-__all__ = [
-    "PodBatch",
-    "ScheduleResult",
-    "SnapshotArrays",
-    "TorchEngine",
-    "WindowsResult",
-    "make_pod_batch",
-    "make_snapshot",
-    "resolve_device",
-    "schedule_batch",
-    "schedule_windows",
-    "stack_windows",
-]
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(name)
+    import importlib
+
+    return getattr(importlib.import_module(module), name)

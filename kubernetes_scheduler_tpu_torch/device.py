@@ -44,6 +44,10 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     blocking the host (PyTorch's pinned allocator keeps the buffer until
     the copy has run), and counts in `transfers`: every upload of the
     port's host data passes here."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        # a view of a decoded journal's bytes: torch wants a writable
+        # buffer, so copy (the builders' arrays never take this branch)
+        a = np.array(a)
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
     if device.type != "cuda":
         return t.to(device).clone()

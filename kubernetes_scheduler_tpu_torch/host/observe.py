@@ -1,6 +1,6 @@
-"""Observability: metrics export and device profiling (the port's copy of
-kubernetes_scheduler_tpu/host/observe.py, its metrics half and
-`profile_device_step`).
+"""Observability: metrics export, per-cycle spans, device profiling (the
+port's copy of kubernetes_scheduler_tpu/host/observe.py, with
+`profile_device_step` on torch.profiler).
 
 The reference *consumes* metrics but exports none — its own metrics
 endpoint is disabled (MetricsBindAddress: "", scheduler.go:64) and its
@@ -15,12 +15,12 @@ BASELINE.json:
 - `Histogram`/`Counter`/`Gauge`: real labeled Prometheus series beside
   the legacy window-quantile gauges (`path=serial|pipelined|fallback`,
   `upload=delta|full`, `rpc=schedule_batch|...`).
+- `SpanRecorder`: per-cycle structured spans with a monotonically-
+  assigned trace id, emitted as Chrome-trace-event JSON to a rotating,
+  disk-budgeted directory (trace/spans.py).
 - `profile_device_step`: wraps one engine call in a torch.profiler trace
   (kernels, memcpys and host ops on one timeline) — armed on demand
   through /debug/profile?cycles=N.
-
-Per-cycle spans (`SpanRecorder`) are not ported yet: they write through
-the trace package, ROADMAP queue A item 7's second half.
 
 Metric-name contract: every exported name carries a HELP entry, ends in
 a unit (or `_total`) suffix, and is pinned in SHIPPED_METRICS —
@@ -31,6 +31,7 @@ never removed.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import http.server
 import json
 import logging
@@ -515,6 +516,168 @@ class Gauge:
                 f"{name}{_fmt_labels(self.labels, key)} {series[key]}"
             )
         return out
+
+
+# ---- per-cycle spans (Chrome trace events, merged across the bridge) ------
+
+
+# every span (stage) name this package has EVER emitted, pinned: span
+# names are a CONTRACT now — `spans report`'s attribution tables,
+# `spans diff`'s regression gate, and Perfetto bookmarks all reference
+# stages by name, so a shipped name is never removed and a new stage is
+# registered consciously. Every name here is the reference's
+# (kubernetes_scheduler_tpu/host/observe.py), so span files of either
+# package feed the same reports.
+SHIPPED_SPANS = (
+    # host cycle stages (host/scheduler.py, both loops)
+    "queue_pop",
+    "state_fetch",
+    "snapshot_build",
+    "delta_derive",
+    # streaming ingestion (config.snapshot_mirror): advisor changed-node
+    # drain applied as mirror events, and the mirror's O(events) emit —
+    # the stage that REPLACES snapshot_build + delta_derive on the hot
+    # path (those names survive for mirror-off runs and the ~0-cost
+    # delta_derive evidence under the mirror)
+    "event_apply",
+    "mirror_emit",
+    "engine_step",
+    "bind",
+    "recorder_write",
+    "host_overlap",
+    "scalar_cycle",
+    "cycle",
+    # sidecar RPC stages (bridge/server.py), joined on trace id
+    "deserialize",
+    "delta_apply",
+    "device_step",
+    "serialize",
+    # post-hoc replay stages (trace/replay.py --spans)
+    "reconstruct",
+    # shadow-mode serving (host/shadow.py --spans): the candidate
+    # engine's re-score of a tailed cycle and the decision-diff verdict
+    # (bindings changed / gangs flipped vs the recorded primary)
+    "candidate_step",
+    "decision_diff",
+)
+
+
+class SpanSet:
+    """One cycle's spans: (name, start, end, args) perf_counter pairs
+    plus the cycle's trace id. Collection appends two floats per span —
+    cheap enough for the dispatch path; Chrome-event encoding happens in
+    SpanRecorder.flush, from the cycle's completion stage (the flight-
+    recorder discipline: telemetry never costs the device dispatch)."""
+
+    __slots__ = ("trace_id", "spans")
+
+    def __init__(self, trace_id: int):
+        self.trace_id = trace_id
+        self.spans: list[tuple] = []
+
+    def add(self, name: str, t0: float, t1: float, **args) -> None:
+        self.spans.append((name, t0, t1, args))
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(name, t0, time.perf_counter(), **args)
+
+
+class SpanRecorder:
+    """Monotonic trace ids + Chrome-event encoding over the rotating
+    span files (trace/spans.py).
+
+    The host assigns ids (`begin()`); the sidecar opens its SpanSets
+    under the id it received over gRPC metadata (`begin(trace_id=...)`),
+    which is what makes `spans merge` able to join the two timelines.
+    Timestamps are mapped to epoch microseconds through one wall/perf
+    anchor pair taken at construction, so both processes share the wall
+    clock domain without per-span time.time() calls."""
+
+    def __init__(
+        self,
+        path: str,
+        *,
+        file_bytes: int = 32 << 20,
+        max_bytes: int = 128 << 20,
+        process: str = "host",
+    ):
+        from kubernetes_scheduler_tpu_torch.trace.spans import SpanWriter
+
+        self._writer = SpanWriter(
+            path,
+            file_bytes=file_bytes,
+            max_bytes=max_bytes,
+            process_name=process,
+        )
+        self.path = path
+        self.process = process
+        self._wall0 = time.time()
+        self._perf0 = time.perf_counter()
+        self._next_id = 1
+        self._id_lock = threading.Lock()
+        self.spans_dropped = 0
+
+    @property
+    def spans_written(self) -> int:
+        return self._writer.events_written
+
+    @property
+    def bytes_written(self) -> int:
+        return self._writer.bytes_written
+
+    def begin(self, trace_id: int | None = None) -> SpanSet:
+        if trace_id is None:
+            with self._id_lock:
+                trace_id = self._next_id
+                self._next_id += 1
+        return SpanSet(trace_id)
+
+    def _ts_us(self, t_perf: float) -> float:
+        return (self._wall0 + (t_perf - self._perf0)) * 1e6
+
+    def flush(self, ss: SpanSet, *, seq: int | None = None, tid: int = 0) -> None:
+        """Encode and write one cycle's spans. Every event carries the
+        trace id; `seq` cross-links the cycle to its flight-recorder
+        record so a replayed cycle can be found in the timeline. Never
+        raises into the scheduling loop — a failed write logs, counts,
+        and drops the set."""
+        try:
+            events = []
+            for name, t0, t1, args in ss.spans:
+                a = {"trace_id": ss.trace_id}
+                if seq is not None:
+                    a["seq"] = seq
+                if args:
+                    a.update(args)
+                events.append(
+                    {
+                        "name": name,
+                        "ph": "X",
+                        "cat": self.process,
+                        "ts": round(self._ts_us(t0), 3),
+                        "dur": round((t1 - t0) * 1e6, 3),
+                        "pid": self._writer.pid,
+                        "tid": tid,
+                        "args": a,
+                    }
+                )
+            self._writer.append(events)
+        except Exception:
+            log.exception("spans: cycle flush failed; dropping span set")
+            # the sidecar's recorder is shared by concurrent RPC workers
+            with self._id_lock:
+                self.spans_dropped += 1
+
+    def close(self) -> None:
+        self._writer.close()
+
+
+# ---- HTTP exporters -------------------------------------------------------
 
 
 class HttpMetricsServer:

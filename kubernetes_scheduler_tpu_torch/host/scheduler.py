@@ -18,8 +18,7 @@ loop, with TorchEngine (on cuda unless the caller passes an engine) as
 the default engine and one explicit device-to-host read per engine
 result (device.to_host). Options whose modules are not ported yet raise
 NotImplementedError naming their ROADMAP queue A item: policy="learned"
-(item 9), sharded_engine (item 10), trace_path and span_path (the trace
-package, item 7's second half).
+(item 9) and sharded_engine (item 10).
 """
 
 from __future__ import annotations
@@ -281,12 +280,6 @@ class Scheduler:
                 "sharded_engine is not ported to the PyTorch package yet: "
                 "ROADMAP queue A, item 10 (the sharded engine)"
             )
-        for knob in ("trace_path", "span_path"):
-            if getattr(config, knob):
-                raise NotImplementedError(
-                    f"{knob} is not ported to the PyTorch package yet: the "
-                    "trace package, ROADMAP queue A, item 7 (second half)"
-                )
         if engine is None:
             from kubernetes_scheduler_tpu_torch.engine import TorchEngine
 
@@ -471,6 +464,14 @@ class Scheduler:
         # one record per cycle appended from the completion stage —
         # never from the dispatch path
         self.recorder = None
+        if config.trace_path:
+            from kubernetes_scheduler_tpu_torch.trace.recorder import CycleRecorder
+
+            self.recorder = CycleRecorder(
+                config.trace_path,
+                file_bytes=config.trace_file_bytes,
+                max_bytes=config.trace_max_bytes,
+            )
         # per-cycle dispatch contexts the recorder reads in _finish_cycle
         self._trace_cycle: list[dict] = []
         # per-cycle span telemetry (config.span_path; observe.SpanRecorder
@@ -482,6 +483,15 @@ class Scheduler:
         # so sidecar-side spans join the host timeline.
         self.spans = None
         self._cycle_span = None
+        if config.span_path:
+            from kubernetes_scheduler_tpu_torch.host.observe import SpanRecorder
+
+            self.spans = SpanRecorder(
+                config.span_path,
+                file_bytes=config.span_file_bytes,
+                max_bytes=config.span_max_bytes,
+                process="host",
+            )
         # labeled Prometheus collectors, rendered by MetricsExporter
         # beside the legacy quantile gauges: real histograms (bucketed,
         # labeled by loop path) instead of window quantiles, and the

@@ -102,7 +102,10 @@ def test_torch_port_runs_a_host_cycle_with_jax_blocked():
     assert proc.stdout.startswith("ok")
 
 
-def test_torch_host_default_engine_wants_cuda():
+def test_torch_host_default_engine_wants_cuda(tmp_path):
+    """Scheduler without an engine runs on cuda and raises without it;
+    the options whose modules are not ported raise naming their ROADMAP
+    item, and trace_path / span_path (ported) open their recorders."""
     from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler
     from kubernetes_scheduler_tpu_torch.sim import gen_host_cluster
     from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
@@ -115,11 +118,108 @@ def test_torch_host_default_engine_wants_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         Scheduler(SchedulerConfig(), **kw)
     for opts, item in (({"policy": "learned"}, "item 9"),
-                       ({"sharded_engine": True}, "item 10"),
-                       ({"trace_path": "t"}, "item 7"),
-                       ({"span_path": "s"}, "item 7")):
+                       ({"sharded_engine": True}, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             Scheduler(SchedulerConfig(**opts), engine=TorchEngine(device="cpu"), **kw)
+    sched = Scheduler(
+        SchedulerConfig(trace_path=str(tmp_path / "t"), span_path=str(tmp_path / "s")),
+        engine=TorchEngine(device="cpu"), **kw,
+    )
+    assert sched.recorder is not None and sched.spans is not None
+    sched.recorder.close()
+    sched.spans.close()
+
+
+def test_torch_new_module_defaults_want_cuda(tmp_path):
+    """Every default engine of the trace, pool, shadow, fleet and
+    scenario modules is TorchEngine() on cuda: without CUDA each raises
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a process without CUDA")
+    from kubernetes_scheduler_tpu_torch.host.engine_pool import SharedEnginePool
+    from kubernetes_scheduler_tpu_torch.host.replica import ReplicaFleet
+    from kubernetes_scheduler_tpu_torch.host.shadow import ShadowScheduler
+    from kubernetes_scheduler_tpu_torch.sim import gen_host_cluster, scenarios
+    from kubernetes_scheduler_tpu_torch.trace.replay import replay_journal
+    from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
+
+    journal = str(ROOT / "tests" / "torch_fixtures" / "ref-auction")
+    nodes, advisor = gen_host_cluster(4, seed=0)
+    calls = [
+        lambda: replay_journal(journal),
+        lambda: SharedEnginePool(),
+        lambda: ShadowScheduler(journal, SchedulerConfig()),
+        lambda: ReplicaFleet(SchedulerConfig(), n_replicas=2,
+                             advisor_factory=lambda i: advisor,
+                             list_nodes=lambda: nodes, list_running_pods=lambda: []),
+        lambda: ReplicaFleet(SchedulerConfig(shared_engine=True), n_replicas=2,
+                             advisor_factory=lambda i: advisor,
+                             list_nodes=lambda: nodes, list_running_pods=lambda: []),
+        lambda: scenarios.run("burst", n_nodes=8),
+        lambda: scenarios.run("replica-conflict-storm", n_nodes=8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_torch_new_modules_run_with_jax_blocked(tmp_path):
+    """Every module of the trace, pool, shadow, fleet, lease, fault and
+    scenario slice imports where jax and the JAX package cannot, and the
+    port records and replays a journal there on TorchEngine(device='cpu')."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_scheduler_tpu'] = None\n"
+        "import importlib\n"
+        "for m in ('trace', 'trace.schema', 'trace.recorder', 'trace.spans',"
+        " 'trace.replay', 'trace.inspect', 'trace.analyze', 'trace.trend',"
+        " 'host.engine_pool', 'host.shadow', 'host.leader', 'host.replica',"
+        " 'sim.faults', 'sim.scenarios', 'sim.scenarios.base',"
+        " 'sim.scenarios.library'):\n"
+        "    importlib.import_module('kubernetes_scheduler_tpu_torch.' + m)\n"
+        "from kubernetes_scheduler_tpu_torch.sim import scenarios\n"
+        "from kubernetes_scheduler_tpu_torch.trace.replay import replay_journal\n"
+        f"j = {str(tmp_path / 'j')!r}\n"
+        "s = scenarios.run('burst', n_nodes=8, seed=0, trace_path=j, device='cpu')\n"
+        "r = replay_journal(j, device='cpu', resident=True)\n"
+        "assert s['pods_bound'] > 0 and r.replayed > 0 and r.binding_diffs == 0\n"
+        "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v]\n"
+        "print('ok', r.replayed)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_torch_journal_tools_run_with_torch_blocked():
+    """The journal and span tools (trace.inspect, .spans, .analyze,
+    .trend) import and run where torch cannot, as the reference's run
+    without jax: stats and diff over a committed journal."""
+    journal = str(ROOT / "tests" / "torch_fixtures" / "ref-auction")
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "from kubernetes_scheduler_tpu_torch.trace import analyze, inspect, spans, trend\n"
+        f"st = inspect.stats({journal!r})\n"
+        f"d = inspect.diff({journal!r}, {journal!r})\n"
+        "assert st['records'] == 2 and d['differences'] == 0, (st, d)\n"
+        "assert d['records_compared'] == 2\n"
+        "assert not [k for k, v in sys.modules.items() if v and k.split('.')[0] == 'torch']\n"
+        "print('ok', st['pods_bound'])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok 2048")
 
 
 def test_torch_entry_points_default_to_cuda():
