@@ -119,13 +119,28 @@ Phases; the first failure exits non-zero and no result line is printed:
    with seed 0 (equal summaries, zero trace diff), each journal
    replayed with 0 diffs, and at 64 nodes the card's journal equal in
    decisions to the port's CPU run; seconds and pods bound of each;
-18. the kernels line (with the launches of phases 12-17), then the
+18. the sidecar on the card (run_bridge): the port's gRPC server
+   (bridge.server.make_server on cuda) in this process and the port's
+   RemoteEngine, on gpu-10kx10k: ScheduleBatch on one window,
+   ScheduleWindows on the backlog (auction and greedy), a resident
+   session of 8 delta cycles and one Preempt on phase 14's inputs, every
+   reply bitwise the in-process TorchEngine's, K1-K4 launches counted
+   through the server, Health on the card; RPC ms against the in-process
+   call, the server's engine seconds, request bytes (field cache cold and
+   warm) and bytes uploaded per RPC;
+19. the live-cluster path (run_live_cluster): `scheduler --source kube`
+   through the port's CLI against the tests' fake API server with 10,000
+   nodes and 8,192 pending pods, once on the in-process engine and once
+   through phase 18's sidecar: every pod bound once through the server's
+   Binding POSTs, both runs' bindings equal, K1 and K3 launched; wall
+   seconds, cycles, pods/s and seconds in the binds' POSTs;
+20. the kernels line (with the launches of phases 12-19), then the
    result line.
 
-Phases 7-17 print their seconds. Timed runs are medians of 3; equality
+Phases 7-19 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
-Needs torch with CUDA, and nothing of JAX.
+Needs torch with CUDA, grpc and protobuf, and nothing of JAX.
 
     python3 chip_smoke.py --parent-tree DIR
 
@@ -141,13 +156,17 @@ and up to commit 86ed4fd K4 never takes a NaN cell).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import importlib.util
+import io
 import json
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import urllib.parse
 from pathlib import Path
 
 import numpy as np
@@ -2137,7 +2156,7 @@ def preemption_cluster(port, n_nodes: int, seed: int = 14):
     return nodes, advisor, running, preemptors
 
 
-def run_host_preemption(torch, port, n_nodes: int = HOST_NODES) -> None:
+def run_host_preemption(torch, port, n_nodes: int = HOST_NODES):
     """Phase 14: preemption at 10,000 nodes through the port's Scheduler
     (preemption_cluster): one cycle with a RecordingEvictor, whose pass
     must run on the card (TorchEngine.preempt, one call, no in-host
@@ -2147,7 +2166,8 @@ def run_host_preemption(torch, port, n_nodes: int = HOST_NODES) -> None:
     on the recorded inputs), its peak device memory and its host-to-device
     bytes (a fresh engine's first call). Then, once the victims have left
     the running list (and the mirror), one more cycle binds every
-    preemptor to its nominated node."""
+    preemptor to its nominated node. Returns the pass's recorded inputs
+    and k_cap (phase 18 sends them over the wire)."""
     nodes, advisor, running, preemptors = preemption_cluster(port, n_nodes)
     engine = engine_variant(port, record=True)()
     evictor = port["RecordingEvictor"]()
@@ -2213,6 +2233,7 @@ def run_host_preemption(torch, port, n_nodes: int = HOST_NODES) -> None:
              f"nodes (first {wrong[0]}: {placed.get(wrong[0])} vs {nominated[wrong[0]]})")
     emit({"phase": "host_preemption_rebind", "pods_bound": m2.pods_bound,
           "on_nominated_node": len(nominated) - len(wrong)})
+    return inputs, k_cap
 
 
 # ---- phases 15-17: journal, replay, spans, fleet, shadow, scenarios ---------
@@ -2674,13 +2695,380 @@ def run_scenarios(torch, port, work: Path) -> dict:
     return launches
 
 
+# ---- phases 18-19: the sidecar on the card, the live-cluster path -------
+
+BRIDGE_TIMED = 3           # medians of 3: RPC against the in-process call
+LIVE_NODES = HOST_NODES    # the fake API server's cluster
+LIVE_PODS = N_WINDOWS * WINDOW
+LIVE_CFG = dict(batch_window=WINDOW, max_windows_per_cycle=N_WINDOWS,
+                min_device_work=0, adaptive_dispatch=False)
+
+
+def request_sizes(client, attr: str) -> list:
+    """Wrap the client's `attr` stub so every request's serialized size is
+    appended to the returned list (bytes on the wire, before gRPC framing)."""
+    sizes, real = [], getattr(client, attr)
+
+    def sized(request, **kw):
+        sizes.append(request.ByteSize())
+        return real(request, **kw)
+
+    setattr(client, attr, sized)
+    return sizes
+
+
+def check_bridge_equal(what, got, want, leaves=("node_idx", "free_after", "n_assigned")):
+    """`got` (numpy, from the wire) bitwise `want` (the in-process call)."""
+    for leaf in leaves:
+        a, b = np.asarray(getattr(got, leaf)), getattr(want, leaf).cpu().numpy()
+        if a.shape != b.shape or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            fail(f"{what}: the reply's {leaf} differs from the in-process engine's")
+
+
+def rpc_timing(torch, port, client, call, inproc) -> dict:
+    """Median wall ms of BRIDGE_TIMED RPCs (the reply read on the host)
+    against the same in-process call followed by its device.to_host read,
+    in turns; the engine seconds the server reported; the bytes uploaded to
+    the card per RPC (device.transfers, set to 0 just before each)."""
+    rpc, local, engine_s, h2d = [], [], [], []
+    for _ in range(BRIDGE_TIMED):
+        torch.cuda.synchronize()
+        port["reset_transfers"]()
+        t0 = time.perf_counter()
+        call()
+        rpc.append((time.perf_counter() - t0) * 1e3)
+        h2d.append(port["transfers"]["h2d_bytes"])
+        engine_s.append(client.last_engine_seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port["to_host"](*inproc())
+        local.append((time.perf_counter() - t0) * 1e3)
+    return {"rpc_ms": statistics.median(rpc), "rpc_ms_runs": rpc,
+            "inprocess_ms": statistics.median(local), "inprocess_ms_runs": local,
+            "engine_seconds": statistics.median(engine_s), "h2d_bytes_per_rpc": h2d}
+
+
+def run_bridge(torch, port, snap, pods, preempt_inputs):
+    """Phase 18: the port's sidecar (bridge.server.make_server on cuda) in
+    this process, the port's RemoteEngine connected to it, on gpu-10kx10k
+    (the inputs of phases 3-4, sent as host arrays): ScheduleBatch on one
+    1,024-pod window (auction, kernel path, min-max), ScheduleWindows on
+    the 8 x 1,024-pod backlog with the auction and with greedy, a
+    resident session of 8 delta cycles (deltas built as phase 12 builds
+    them), and one Preempt on phase 14's recorded inputs. Every reply
+    equals, bitwise, the same call on an in-process TorchEngine
+    (node_idx, free_after, n_assigned; node, victims, n_victims). K1-K4
+    launches are counted around each RPC in this (the server's) process:
+    1 K1 and K2 and >= 1 K3 for the window and each delta cycle, 8 K1 and
+    K2 and >= 8 K3 for the auction backlog, 8 K1, K2 and K4 for greedy.
+    Health must say platform "gpu" and fused_min_max. Prints RPC ms
+    against the in-process call (median of 3, window and backlogs; the
+    window also with decisions_only, whose reply leaves out the [p, n]
+    matrices), the
+    server's engine_seconds, request bytes with the field cache cold and
+    warm, and bytes uploaded to the card per RPC. Returns (the launches
+    by RPC, the server, its address)."""
+    TorchEngine = port["TorchEngine"]
+    server, port_no, service = port["make_server"]("127.0.0.1:0", device="cuda")
+    server.start()
+    address = f"127.0.0.1:{port_no}"
+    client = port["RemoteEngine"](address, deadline_seconds=600.0)
+    try:
+        info = client.health_info(timeout=60.0)
+        if info is None or info.platform != "gpu" or not info.fused_min_max:
+            fail(f"bridge: health {info}")
+        host0 = type(snap)(*[t.cpu().numpy() for t in snap])   # what a host sends
+        backlog = type(pods)(*[f[: WINDOW * N_WINDOWS].cpu().numpy() for f in pods])
+        windows = [type(pods)(*[f[c * WINDOW:(c + 1) * WINDOW] for f in backlog])
+                   for c in range(N_WINDOWS)]
+        pods_w = port["stack_windows"](backlog, WINDOW)
+        local = TorchEngine()
+        batch_sizes = request_sizes(client, "_schedule")
+        windows_sizes = request_sizes(client, "_schedule_windows")
+        launches, rows = {}, {}
+
+        def expect(what, got, calls, k3=False, k4=False):
+            expect_launches(what, got, {
+                "masked_score": calls, "row_stats": calls,
+                "auction_bid": None if k3 else 0, "greedy_scan": calls if k4 else 0})
+            if k3 and got["auction_bid"] < calls:
+                fail(f"{what}: K3 launched {got['auction_bid']} times for {calls} windows")
+
+        # ScheduleBatch: one window
+        res, launches["batch"] = counted(
+            torch, port, lambda: client.schedule_batch(host0, windows[0], **SLICE_KW))
+        expect("bridge batch", launches["batch"], 1, k3=True)
+        check_bridge_equal("bridge batch", res,
+                           local.schedule_batch(host0, windows[0], **SLICE_KW))
+        cold = batch_sizes[-1]       # the session's first ScheduleBatch
+        rows["batch"] = rpc_timing(
+            torch, port, client, lambda: client.schedule_batch(host0, windows[0], **SLICE_KW),
+            lambda: local.schedule_batch(host0, windows[0], **SLICE_KW))
+        rows["batch"].update(request_bytes_cold=cold, request_bytes_warm=batch_sizes[-1])
+        # the same window with decisions_only: the reply drops the [p, n]
+        # score and mask matrices, which the host loop never reads
+        slim = port["RemoteEngine"](address, deadline_seconds=600.0, decisions_only=True)
+        try:
+            check_bridge_equal("bridge batch, decisions only",
+                               slim.schedule_batch(host0, windows[0], **SLICE_KW),
+                               local.schedule_batch(host0, windows[0], **SLICE_KW))
+            rows["batch_decisions_only"] = rpc_timing(
+                torch, port, slim, lambda: slim.schedule_batch(host0, windows[0], **SLICE_KW),
+                lambda: local.schedule_batch(host0, windows[0], **SLICE_KW))
+        finally:
+            slim.close()
+        # ScheduleWindows: the backlog on each assigner
+        for name, kw, k3, k4 in (("backlog_auction", SLICE_KW, True, False),
+                                 ("backlog_greedy", GREEDY_KW, False, True)):
+            res, launches[name] = counted(
+                torch, port, lambda kw=kw: client.schedule_windows(host0, pods_w, **kw))
+            expect(f"bridge {name}", launches[name], N_WINDOWS, k3=k3, k4=k4)
+            check_bridge_equal(f"bridge {name}", res,
+                               local.schedule_windows(host0, pods_w, **kw))
+            first = windows_sizes[-1]
+            rows[name] = rpc_timing(
+                torch, port, client,
+                lambda kw=kw: client.schedule_windows(host0, pods_w, **kw),
+                lambda kw=kw: local.schedule_windows(host0, pods_w, **kw))
+            rows[name].update(request_bytes_warm=windows_sizes[-1],
+                              n_assigned=int(res.n_assigned))
+            if len(windows_sizes) == 1 + BRIDGE_TIMED:
+                # the session's first ScheduleWindows: the field cache is cold
+                rows[name]["request_bytes_cold"] = first
+        # a resident session: a full upload, then 8 delta cycles
+        rng = np.random.default_rng(18)
+        prev, epoch = host0, 1
+        res = client.schedule_resident(prev, windows[0], epoch=epoch, **SLICE_KW)
+        check_bridge_equal("bridge resident full", res,
+                           local.schedule_batch(prev, windows[0], **SLICE_KW))
+        resident = dict.fromkeys(port["fused"].launches, 0)
+        delta_bytes, delta_ms, h2d = [], [], []
+        for c in range(N_WINDOWS):
+            new, _ = next_host_snapshot(prev, torch.from_numpy(np.array(res.free_after)), rng)
+            delta = snapshot_delta_np(port, prev, new)
+            epoch += 1
+            port["reset_transfers"]()
+            t0 = time.perf_counter()
+            res, ln = counted(torch, port, lambda: client.schedule_resident(
+                new, windows[c], delta=delta, epoch=epoch, **SLICE_KW))
+            delta_ms.append((time.perf_counter() - t0) * 1e3)
+            h2d.append(port["transfers"]["h2d_bytes"])
+            expect(f"bridge resident cycle {c}", ln, 1, k3=True)
+            if not client.resident_used_delta:
+                fail(f"bridge resident: delta cycle {c} was resent in full")
+            delta_bytes.append(batch_sizes[-1])
+            check_bridge_equal(f"bridge resident cycle {c}", res,
+                               TorchEngine().schedule_batch(new, windows[c], **SLICE_KW))
+            for k, v in ln.items():
+                resident[k] += v
+            prev = new
+        launches["resident_deltas"] = resident
+        if service.resident_deltas_served != N_WINDOWS:
+            fail(f"bridge resident: {service.resident_deltas_served} deltas served")
+        rows["resident"] = {"delta_cycles": N_WINDOWS, "rpc_ms_runs": delta_ms,
+                            "rpc_ms": statistics.median(delta_ms),
+                            "request_bytes": delta_bytes, "h2d_bytes_per_rpc": h2d}
+        # one Preempt on phase 14's inputs
+        (psnap, ppods, victims), k_cap = preempt_inputs
+        got, ln = counted(torch, port, lambda: client.preempt(psnap, ppods, victims,
+                                                               k_cap=k_cap))
+        check_bridge_equal("bridge preempt", got,
+                           local.preempt(psnap, ppods, victims, k_cap=k_cap),
+                           leaves=("node", "victims", "n_victims"))
+        expect_launches("bridge preempt", ln, dict.fromkeys(ln, 0))
+        rows["preempt"] = {"k_cap": k_cap, "proposals": int((got.node >= 0).sum()),
+                           "engine_seconds": client.last_engine_seconds}
+        emit({"phase": "bridge", "config": "gpu-10kx10k", "address": address,
+              "health": {"platform": info.platform, "device_count": info.device_count,
+                         "fused_min_max": info.fused_min_max},
+              "parity": "bitwise", "rpcs": rows, "launches": launches})
+    except BaseException:
+        server.stop(grace=None)
+        raise
+    finally:
+        client.close()
+    return launches, server, address
+
+
+def load_fake_kube():
+    """tests/fake_kube.py, the stdlib fake API server (and Prometheus
+    endpoint) of the tests, loaded by path."""
+    path = Path(__file__).resolve().parent / "tests" / "fake_kube.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_fake_kube", path)
+    if spec is None or not path.exists():
+        fail(f"{path} is missing")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fill_live_cluster(fake_kube, fake, n_nodes: int, n_pods: int, profiles: int = 32,
+                      seed: int = 19) -> None:
+    """The fake API server's cluster for the live path: n_nodes nodes with
+    their Prometheus values and n_pods pending pods with seeded CPU
+    requests, priorities and diskIO annotations.
+
+    The live loop schedules pods as the watch delivers them, so how the
+    queue is cut into windows depends on timing; for two runs to compare
+    binding for binding, each pod's placement must not depend on that
+    cut. So every node can hold every pod (no node fills), and each pod
+    has one best node by a margin above the auction's tie jitter (1% of
+    a row's range): `profiles` nodes have disk I/O at half the divisor
+    and CPU t_k times that (t_k spread over (0, 1.9]), every other node is
+    CPU-hot with no disk I/O, and each pod's diskIO / CPU-millicores
+    ratio equals one t_k, so BalancedCpuDiskIO scores that node 10 and
+    the next profile at least 3% of the row's range lower."""
+    rng = np.random.default_rng(seed)
+    ratios = 1.9 * np.arange(1, profiles + 1) / profiles
+    for i in range(n_nodes):
+        node = fake_kube.make_node_obj(f"node-{i:05d}", cpu=str(n_pods),
+                                       memory=f"{n_pods * 2}Gi")
+        node["status"]["allocatable"]["pods"] = str(n_pods)
+        fake.add_node(node)
+        good = i < profiles
+        fake.prom[node["metadata"]["name"]] = {
+            "cpu_pct": float(50.0 * ratios[i]) if good else 95.0,
+            "mem_pct": float(rng.uniform(5.0, 95.0)),
+            "disk_io": 25.0 if good else 0.0}
+    cpu = rng.integers(1, 10, n_pods) * 100
+    shape = rng.integers(0, profiles, n_pods)
+    for j in range(n_pods):
+        fake.add_pod(fake_kube.make_pod_obj(
+            f"pod-{j:05d}", cpu=f"{cpu[j]}m", labels={"scv/priority": str(j % 4)},
+            annotations={"diskIO": repr(float(ratios[shape[j]] * cpu[j]))}))
+
+
+def resume_watches(fake) -> None:
+    """Make the fake API server's watches an API server's: its lists carry
+    a resourceVersion, a watch from that resourceVersion streams nothing
+    (no object changes behind the scheduler's back in phase 19), and every
+    watch stream stays open for its timeoutSeconds. The tests' fake lists
+    without a resourceVersion and closes each watch as soon as it has sent
+    every object again, so the informer would relist 10,000 nodes and
+    reseed the snapshot mirror every 0.2 s, and the pending-pod feeder
+    would re-read every pending pod in a busy loop; either starves the
+    binds of the interpreter lock. The feeder watches without a
+    resourceVersion and still gets every pending pod, as from a real API
+    server."""
+    handler = fake.server.RequestHandlerClass
+    real_send, real_get = handler._send, handler.do_GET
+
+    def send(self, code, obj):
+        if code == 200 and isinstance(obj, dict) and "items" in obj:
+            obj = {**obj, "metadata": {"resourceVersion": "1"}}
+        return real_send(self, code, obj)
+
+    def do_get(self):
+        query = dict(urllib.parse.parse_qsl(urllib.parse.urlparse(self.path).query))
+        if query.get("watch") != "true":
+            return real_get(self)
+        if "resourceVersion" in query:
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.end_headers()
+        else:
+            real_get(self)
+        self.wfile.flush()
+        time.sleep(float(query.get("timeoutSeconds", 0)))
+        return None
+
+    handler._send, handler.do_GET = send, do_get
+
+
+def kube_scheduler_run(torch, port, fake_kube, work: Path, engine: str) -> dict:
+    """One `scheduler --source kube --engine <engine> --device cuda`
+    through the port's CLI against a fresh fake API server holding
+    fill_live_cluster(LIVE_NODES, LIVE_PODS),
+    until the queue is idle: its bindings (the server's Binding POSTs),
+    the CLI's totals, wall seconds, seconds inside the binder's POSTs and
+    the K1-K4 launches (counted in this process, which also holds the
+    server of phase 18)."""
+    fake = fake_kube.FakeKube()
+    resume_watches(fake)
+    fake.start()
+    binder = port["KubeBinder"]
+    real_bind, post_s = binder.bind, [0.0]
+
+    def timed_bind(self, pod, node_name):
+        t0 = time.perf_counter()
+        try:
+            return real_bind(self, pod, node_name)
+        finally:
+            post_s[0] += time.perf_counter() - t0
+
+    try:
+        fill_live_cluster(fake_kube, fake, LIVE_NODES, LIVE_PODS)
+        cfg = work / "live-config.json"
+        cfg.write_text(json.dumps({
+            **LIVE_CFG, "advisor": {"prometheus_host": fake.url.removeprefix("http://"),
+                                    "refresh_interval_seconds": 0}}))
+        argv = ["scheduler", "--source", "kube", "--kube-server", fake.url,
+                "--config", str(cfg), "--watch-timeout", "2", "--engine", engine,
+                "--device", "cuda"]
+        out = io.StringIO()
+        binder.bind = timed_bind
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, ln = counted(torch, port, lambda: port["cli_main"](argv))
+        wall = time.perf_counter() - t0
+    finally:
+        binder.bind = real_bind
+        fake.stop()
+    if rc != 0:
+        fail(f"live cluster ({engine}): the CLI exited {rc}")
+    totals = json.loads(out.getvalue().strip().splitlines()[-1])
+    keys = [k for k, _ in fake.bindings]
+    if len(keys) != LIVE_PODS or len(set(keys)) != LIVE_PODS or set(keys) != set(fake.pods):
+        fail(f"live cluster ({engine}): {len(keys)} Binding POSTs for {len(set(keys))} "
+             f"distinct pods of {LIVE_PODS}")
+    return {"bindings": sorted(fake.bindings), "totals": totals, "wall_s": wall,
+            "bind_post_s": post_s[0], "launches": ln}
+
+
+def run_live_cluster(torch, port, work: Path, address: str | None) -> dict:
+    """Phase 19: the live-cluster path through the port's CLI. A fake API
+    server (tests/fake_kube.py, its watches resumed as an API server's:
+    resume_watches) with LIVE_NODES nodes and their Prometheus
+    values and LIVE_PODS pending pods (batch_window 1,024, up to 8 windows
+    a cycle); `scheduler --source kube --engine E --device cuda` runs until
+    the queue is idle, once with E = local and once with E = phase 18's
+    sidecar. Every pod must be bound exactly once through the server's
+    Binding POSTs, the two runs' bindings must be equal, and K1 and K3 must
+    have launched in each. Prints wall seconds, cycles, pods/s and the
+    seconds spent in the binds' POSTs. Returns the launches by run."""
+    fake_kube = load_fake_kube()
+    runs = {"local": "local"}
+    if address is not None:
+        runs["sidecar"] = address
+    launches, first = {}, None
+    for name, engine in runs.items():
+        r = kube_scheduler_run(torch, port, fake_kube, work, engine)
+        launches[name] = r["launches"]
+        if r["launches"]["masked_score"] < 1 or r["launches"]["auction_bid"] < 1:
+            fail(f"live cluster ({name}): K1 or K3 never launched: {r['launches']}")
+        if first is None:
+            first = r["bindings"]
+        elif r["bindings"] != first:
+            diff = sum(a != b for a, b in zip(first, r["bindings"]))
+            fail(f"live cluster: the {name} run bound {diff} pods elsewhere than local")
+        emit({"phase": f"live_cluster_{name}", "nodes": LIVE_NODES, "pods": LIVE_PODS,
+              "engine": engine, "cycles": r["totals"]["cycles"],
+              "pods_bound": r["totals"]["pods_bound"], "wall_s": r["wall_s"],
+              "pods_per_s": LIVE_PODS / r["wall_s"], "bind_post_s": r["bind_post_s"],
+              "bindings_equal_local": True, "launches": r["launches"]})
+    return launches
+
+
 def load_port() -> dict:
     """The port's functions the phases call, by name (a CPU rehearsal
     passes its own dict); fails when the port is not importable or
     imports jax."""
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
-        from kubernetes_scheduler_tpu_torch.device import reset_transfers, transfers
+        from kubernetes_scheduler_tpu_torch.bridge.client import RemoteEngine
+        from kubernetes_scheduler_tpu_torch.bridge.server import make_server
+        from kubernetes_scheduler_tpu_torch.cli import main as cli_main
+        from kubernetes_scheduler_tpu_torch.device import reset_transfers, to_host, transfers
         from kubernetes_scheduler_tpu_torch.engine import (
             DOMAIN_TABLES,
             NORMALIZERS,
@@ -2703,6 +3091,7 @@ def load_port() -> dict:
         from kubernetes_scheduler_tpu_torch.host.scheduler import RecordingEvictor, Scheduler
         from kubernetes_scheduler_tpu_torch.host.shadow import ShadowScheduler
         from kubernetes_scheduler_tpu_torch.host.types import Container, MatchExpression, Pod
+        from kubernetes_scheduler_tpu_torch.kube.source import KubeBinder
         from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
         from kubernetes_scheduler_tpu_torch.ops.assign import (
             NEG,
@@ -2759,6 +3148,8 @@ def load_port() -> dict:
         inspect=inspect, replay_journal=replay_journal, reconstruct_cycles=reconstruct_cycles,
         pod_batch_from_record=pod_batch_from_record,
         engine_kw_from_record=engine_kw_from_record, read_spans=read_spans,
+        make_server=make_server, RemoteEngine=RemoteEngine, cli_main=cli_main,
+        KubeBinder=KubeBinder, to_host=to_host,
     )
     return port
 
@@ -2866,13 +3257,15 @@ def main() -> None:
 
     # ---- 14. preemption through the host loop ------------------------------
     t0 = time.perf_counter()
-    run_host_preemption(torch, port)
+    preempt_inputs = run_host_preemption(torch, port)
     emit({"phase": "host_preemption_seconds", "seconds": time.perf_counter() - t0})
 
-    # ---- 15-17. journal and replay, fleet and shadow, scenarios ------------
+    # ---- 15-19. journal and replay, fleet and shadow, scenarios, the
+    # sidecar, the live-cluster path ---------------------------------------
     work = Path(__file__).resolve().parent / SMOKE_WORK
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    server = None
     try:
         t0 = time.perf_counter()
         journal_launches, journal = run_journal(torch, port, work)
@@ -2883,10 +3276,18 @@ def main() -> None:
         t0 = time.perf_counter()
         scenario_launches = run_scenarios(torch, port, work)
         emit({"phase": "scenarios_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        bridge_launches, server, address = run_bridge(torch, port, snap, pods, preempt_inputs)
+        emit({"phase": "bridge_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        live_launches = run_live_cluster(torch, port, work, address)
+        emit({"phase": "live_cluster_seconds", "seconds": time.perf_counter() - t0})
     finally:
+        if server is not None:
+            server.stop(grace=None)
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 18. the kernels line and the result ----------------------------
+    # ---- 20. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -2909,6 +3310,8 @@ def main() -> None:
             "journal_launches": launches_of(journal_launches, name),
             "fleet_shadow_launches": launches_of(fleet_launches, name),
             "scenario_launches": launches_of(scenario_launches, name),
+            "bridge_launches": launches_of(bridge_launches, name),
+            "live_cluster_launches": launches_of(live_launches, name),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -17,8 +17,7 @@ identity, acquire time, renew time, duration); a candidate acquires when
 the lease is unheld or expired; the holder renews every `retry_period`
 and loses leadership when renewal fails or the lease was stolen.
 
-The port's copy of kubernetes_scheduler_tpu/host/leader.py (`kube.lease`
-is the reference's; the port's kube/ is ROADMAP queue A item 8).
+The port's copy of kubernetes_scheduler_tpu/host/leader.py.
 """
 
 from __future__ import annotations

@@ -252,6 +252,21 @@ class _PendingCycle:
         return self._sched._complete_cycle_split(self._m, start, infl, t0)
 
 
+def refuse_unported(config) -> None:
+    """Raise NotImplementedError, naming its ROADMAP queue A item, for a
+    config option whose module the port does not have yet."""
+    if config.policy == "learned":
+        raise NotImplementedError(
+            "policy='learned' is not ported to the PyTorch package yet: "
+            "ROADMAP queue A, item 9 (the learned scorer)"
+        )
+    if config.sharded_engine:
+        raise NotImplementedError(
+            "sharded_engine is not ported to the PyTorch package yet: "
+            "ROADMAP queue A, item 10 (the sharded engine)"
+        )
+
+
 class Scheduler:
     def __init__(
         self,
@@ -270,16 +285,7 @@ class Scheduler:
     ):
         self.config = config
         self.advisor = advisor
-        if config.policy == "learned":
-            raise NotImplementedError(
-                "policy='learned' is not ported to the PyTorch package yet: "
-                "ROADMAP queue A, item 9 (the learned scorer)"
-            )
-        if config.sharded_engine:
-            raise NotImplementedError(
-                "sharded_engine is not ported to the PyTorch package yet: "
-                "ROADMAP queue A, item 10 (the sharded engine)"
-            )
+        refuse_unported(config)
         if engine is None:
             from kubernetes_scheduler_tpu_torch.engine import TorchEngine
 

@@ -268,3 +268,80 @@ def test_torch_wrappers_take_plain_version_on_cpu():
     assert fused.launches == {
         "masked_score": 0, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0,
     }
+
+
+def test_torch_bridge_kube_and_command_run_with_jax_blocked():
+    """The bridge, kube/, register, models and the CLI import where jax and
+    the JAX package cannot; a server on the CPU answers the port's
+    RemoteEngine there, and `python -m kubernetes_scheduler_tpu_torch`
+    runs."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_scheduler_tpu'] = None\n"
+        "import importlib\n"
+        "for m in ('bridge', 'bridge.codec', 'bridge.client', 'bridge.server',"
+        " 'bridge.schedule_pb2', 'kube', 'kube.client', 'kube.convert', 'kube.lease',"
+        " 'kube.source', 'kube.volumes', 'register', 'models', 'models.policy', 'cli'):\n"
+        "    importlib.import_module('kubernetes_scheduler_tpu_torch.' + m)\n"
+        "from kubernetes_scheduler_tpu_torch.bridge import RemoteEngine, make_server\n"
+        "from kubernetes_scheduler_tpu_torch.sim import gen_cluster, gen_pods\n"
+        "server, port, service = make_server('127.0.0.1:0', device='cpu')\n"
+        "server.start()\n"
+        "client = RemoteEngine(f'127.0.0.1:{port}', deadline_seconds=60.0)\n"
+        "res = client.schedule_batch(gen_cluster(40, seed=1, device='cpu'),"
+        " gen_pods(16, seed=2, device='cpu'), assigner='auction')\n"
+        "assert int(res.n_assigned) > 0 and client.health_info().platform == 'cpu'\n"
+        "client.close()\n"
+        "server.stop(None)\n"
+        "sys.argv = ['yoda-tpu', 'policies']\n"
+        "try:\n"
+        "    runpy.run_module('kubernetes_scheduler_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v]\n"
+        "print('ok', int(res.n_assigned))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ok" in proc.stdout and "yoda-tpu" in proc.stdout
+
+
+def test_torch_server_and_command_default_to_cuda():
+    """EngineService(), make_server(), `scheduler` (--engine local) and
+    `sidecar` of the port's CLI run on cuda by default and raise without
+    it; they never fall back to the CPU on their own."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a process without CUDA")
+    from kubernetes_scheduler_tpu_torch import cli
+    from kubernetes_scheduler_tpu_torch.bridge.server import EngineService, make_server
+
+    calls = [
+        lambda: EngineService(),
+        lambda: make_server("127.0.0.1:0"),
+        lambda: cli.main(["scheduler", "--nodes", "4", "--pods", "4"]),
+        lambda: cli.main(["scheduler", "--engine", "local", "--nodes", "4", "--pods", "4"]),
+        lambda: cli.main(["sidecar", "--port", "0"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_torch_wire_schema_is_the_references():
+    """schedule.proto and schedule_pb2.py are the JAX package's byte for
+    byte (one file name in protobuf's default pool: a copy that differed
+    would collide with it), so both packages share the message classes."""
+    from kubernetes_scheduler_tpu.bridge import schedule_pb2 as ref_pb
+    from kubernetes_scheduler_tpu_torch.bridge import schedule_pb2 as pb
+
+    for name in ("schedule.proto", "schedule_pb2.py"):
+        ours = (PORT / "bridge" / name).read_bytes()
+        theirs = (ROOT / "kubernetes_scheduler_tpu" / "bridge" / name).read_bytes()
+        assert ours == theirs, name
+    assert pb.DESCRIPTOR.serialized_pb == ref_pb.DESCRIPTOR.serialized_pb
+    assert pb.ScheduleRequest is ref_pb.ScheduleRequest
