@@ -134,10 +134,26 @@ Phases; the first failure exits non-zero and no result line is printed:
    through phase 18's sidecar: every pod bound once through the server's
    Binding POSTs, both runs' bindings equal, K1 and K3 launched; wall
    seconds, cycles, pods/s and seconds in the binds' POSTs;
-20. the kernels line (with the launches of phases 12-19), then the
+20. the learned two-tower scorer at full width on gpu-10kx10k
+   (run_learned): train_steps on the card (TF32 off; the loss falls), a
+   checkpoint round trip, the restored engine's auction and greedy
+   backlogs with affinity_aware=False equal to their plain runs (K3 once
+   a round, K4 once a window, counted), the card against the CPU on four
+   small clusters (raw scores within LEARNED_RAW_TOL, which TF32
+   products must exceed), the Scheduler with
+   policy="learned" on a host-10k backlog, and the sidecar with
+   --learned-checkpoint (replies bitwise the in-process engine's); train
+   step, forward and backlog ms;
+21. the node-sharded engine on one card (run_mesh): meshes of cuda:0
+   four times and once, the fused (K1 once per shard per window) and
+   composed min-max backlogs for both assigners, resident delta cycles
+   with bytes per shard, the learned scorer on the mesh, the Scheduler
+   with sharded_engine on a host-10k backlog and a 4-shard sidecar, each
+   bitwise the dense engine's; ms beside the dense call's;
+22. the kernels line (with the launches of phases 12-21), then the
    result line.
 
-Phases 7-19 print their seconds. Timed runs are medians of 3; equality
+Phases 7-21 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, grpc and protobuf, and nothing of JAX.
@@ -3059,12 +3075,432 @@ def run_live_cluster(torch, port, work: Path, address: str | None) -> dict:
     return launches
 
 
+LEARNED_STEPS = 300        # train_step calls on the card before the checkpoint
+LEARNED_TIMED_STEPS = 20   # more steps, timed by CUDA events
+# |card - CPU| raw two-tower score with float32 products, over the
+# clusters of LEARNED_RAW_SEEDS, where the largest |raw| is 10.3-11.1.
+# Read on an H100 (700 W): float32 products differ by 4.8e-6 to 5.7e-6
+# (5-6 ulp of 11), TF32 products by 1.7e-3 to 2.1e-3; the limit sits
+# between them, about 17x from each
+LEARNED_RAW_TOL = 1e-4
+LEARNED_RAW_SEEDS = (3, 5, 7, 9)
+LEARNED_KW = dict(normalizer="min_max", affinity_aware=False)
+MESH_SHARDS = 4
+# greedy backlog depth on the mesh: its election is a chain of small
+# launches per pod (8 windows on 4 shards took 7.3-11.5 s a call on an
+# H100 at 700 W), cut from N_WINDOWS so every case runs warm and 3 times
+MESH_GREEDY_WINDOWS = 2
+MESH_RESIDENT_CYCLES = 8
+MESH_CASES = {
+    "k1_auction": dict(assigner="auction", normalizer="none", fused=True),
+    "k1_greedy": dict(assigner="greedy", normalizer="none", fused=True),
+    "minmax_auction": dict(assigner="auction", normalizer="min_max"),
+    "minmax_greedy": dict(assigner="greedy", normalizer="min_max"),
+}
+
+
+def check_no_tf32(torch, what: str) -> None:
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail(f"{what}: TF32 is enabled for float32 matrix products")
+
+
+def backlog_windows(port, pods, n_windows: int = N_WINDOWS):
+    backlog = type(pods)(*[f[: WINDOW * n_windows] for f in pods])
+    return backlog, port["stack_windows"](backlog, WINDOW)
+
+
+def run_learned(torch, port, snap, pods, work: Path):
+    """Phase 20: the learned two-tower scorer at full width (NodeScorer()
+    defaults: d_model 128, width 256, depth 2) on gpu-10kx10k. TF32 must
+    be off. LEARNED_STEPS train_steps on the card against
+    balanced_cpu_diskio's raw scores of one 1,024-pod window (the loss
+    must fall by more than 10%), LEARNED_TIMED_STEPS more timed by CUDA
+    events; save_checkpoint, then load_learned_engine, whose parameters
+    must equal the trained ones bitwise. The restored engine's auction
+    and greedy 8 x 1,024-pod backlogs with affinity_aware=False, each
+    equal to the same call on the plain kernels (_plain=True), K3
+    launched once per auction round (rounds counted at the admission)
+    and K4 once per window, both counted; on four 300-node clusters
+    (LEARNED_RAW_SEEDS) raw scores within LEARNED_RAW_TOL of the engine on
+    the CPU with the same parameters, and equal auction decisions, while
+    the same products in TF32 differ by more than LEARNED_RAW_TOL (the
+    tolerance would catch them); Scheduler(policy="learned",
+    learned_checkpoint=...) draining one host-10k backlog on the engine
+    path; the in-process sidecar built by the server's command line with
+    --learned-checkpoint, its replies (one window, the greedy backlog)
+    bitwise the in-process engine's. Prints backlog ms and pods/s, train
+    step ms and the forward's ms. Returns (the launches by run, the
+    engine, the checkpoint path)."""
+    L = port["learned"]
+    check_no_tf32(torch, "learned")
+    t0 = time.perf_counter()
+    window = type(pods)(*[f[:WINDOW] for f in pods])
+    state, model, tx = L.init_train_state(0)
+    pod_x, node_x = L.make_features(snap, window)
+    teacher = port["compute_scores"](snap, window, "balanced_cpu_diskio")
+
+    def step():
+        nonlocal state
+        state, loss = L.train_step(state, model, tx, pod_x, node_x, teacher,
+                                   snap.node_mask, window.pod_mask)
+        return loss
+
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    losses = torch.stack([step() for _ in range(LEARNED_STEPS)]).cpu().tolist()
+    train_s = time.perf_counter() - t_train
+    if not all(np.isfinite(losses)) or not losses[-1] < 0.9 * losses[0]:
+        fail(f"learned: the loss did not fall: {losses[:3]} ... {losses[-3:]}")
+    step_ms = cuda_ms(torch, step, n=LEARNED_TIMED_STEPS, warmup=1)
+    path = work / "learned-state"
+    L.save_checkpoint(str(path), state)
+    engine = L.load_learned_engine(str(path))
+    for name, t in state.params.items():
+        if not same(torch, engine.params[name], t.detach()):
+            fail(f"learned: restored parameter {name} differs from the trained one")
+    with torch.no_grad():
+        forward_ms = cuda_ms(torch, lambda: engine.model(pod_x, node_x))
+    emit({"phase": "learned_train", "config": "gpu-10kx10k", "pods": WINDOW,
+          "nodes": snap.allocatable.shape[0], "steps": LEARNED_STEPS + LEARNED_TIMED_STEPS + 1,
+          "loss_first": losses[0], "loss_last": losses[-1], "train_s": train_s,
+          "step_ms": step_ms, "forward_ms": forward_ms,
+          "params": sum(t.numel() for t in state.params.values())})
+
+    launches = {}
+    _, pods_w = backlog_windows(port, pods)
+    n_nodes = snap.allocatable.shape[0]
+    for assigner in ("auction", "greedy"):
+        kw = dict(LEARNED_KW, assigner=assigner)
+        run = lambda: engine.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+        run()                                                       # warm-up
+        torch.cuda.synchronize()
+        port["fused"].reset_launches()
+        out, rounds = count_rounds(port, run)
+        torch.cuda.synchronize()
+        ln = dict(port["fused"].launches)
+        if assigner == "auction":
+            want = {"masked_score": 0, "row_stats": 0, "auction_bid": rounds, "greedy_scan": 0}
+        else:
+            want = {"masked_score": 0, "row_stats": 0, "auction_bid": 0,
+                    "greedy_scan": N_WINDOWS}
+        expect_launches(f"learned {assigner} backlog", ln, want)
+        check_equal(torch, f"learned {assigner} backlog (vs the plain path)", out,
+                    engine.schedule_windows(snap, pods_w, _plain=True, **kw))
+        assigned = check_backlog(torch, f"learned {assigner} backlog", out, N_WINDOWS,
+                                 n_nodes, 0.5)
+        runs, _ = wall_ms(torch, run, n=3)
+        launches[assigner] = ln
+        emit({"phase": f"learned_{assigner}_schedule_windows", "config": "gpu-10kx10k",
+              "windows": N_WINDOWS, "window": WINDOW, "nodes": n_nodes,
+              "backlog_ms": statistics.median(runs), "backlog_ms_runs": runs,
+              "pods_per_s": N_WINDOWS * WINDOW / (statistics.median(runs) / 1e3),
+              "n_assigned": assigned, "auction_rounds": rounds, "launches": ln,
+              "equal_to_plain": True})
+
+    # the card against the CPU on small clusters, same parameters; the
+    # same product with TF32 on shows what the tolerance must catch
+    cpu_engine = L.LearnedEngine({k: v.cpu() for k, v in engine.params.items()}, device="cpu")
+    kw = dict(LEARNED_KW, assigner="auction")
+    errs, tf32_errs, raw_abs = [], [], []
+    for seed in LEARNED_RAW_SEEDS:
+        small = port["gen_cluster"](300, seed=seed, gpu=True, device="cpu")
+        small_pods = port["gen_pods"](96, seed=seed + 1, gpu=True, device="cpu")
+        got = engine.schedule_batch(small, small_pods, **kw)
+        want = cpu_engine.schedule_batch(small, small_pods, **kw)
+        errs.append(max_abs_err(got.raw_scores.cpu(), want.raw_scores))
+        raw_abs.append(float(want.raw_scores.abs().max()))
+        got_cpu = type(got)(*[f.cpu() for f in got])
+        if decisions_match(torch, port, got_cpu, want, small_pods, "auction") != "equal":
+            fail(f"learned: the card's auction decisions differ from the CPU path's "
+                 f"(seed {seed})")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = engine.schedule_batch(small, small_pods, **kw).raw_scores.cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_errs.append(max_abs_err(tf32, want.raw_scores))
+    check_no_tf32(torch, "learned")
+    if not max(errs) <= LEARNED_RAW_TOL:
+        fail(f"learned: raw scores differ from the CPU path by {max(errs)}")
+    if not min(tf32_errs) > LEARNED_RAW_TOL:
+        fail(f"learned: TF32 products differ from the CPU path by only {min(tf32_errs)}, "
+             f"within the tolerance {LEARNED_RAW_TOL}")
+    emit({"phase": "learned_card_vs_cpu", "nodes": 300, "pods": 96,
+          "seeds": list(LEARNED_RAW_SEEDS), "raw_max_abs_err": max(errs),
+          "raw_max_abs_err_runs": errs, "raw_max_abs": raw_abs,
+          "tf32_max_abs_err_runs": tf32_errs, "tolerance": LEARNED_RAW_TOL,
+          "decisions": "equal"})
+
+    # the host loop: Scheduler(policy="learned", learned_checkpoint=...)
+    nodes, advisor = port["gen_host_cluster"](HOST_NODES, seed=0)
+    cfg = dict(HOST_CFG, policy="learned", learned_checkpoint=str(path))
+    running = []
+    sched, clock = host_scheduler(port, None, nodes, advisor, running, cfg)
+    if (not isinstance(sched.engine, L.LearnedEngine)
+            or sched.engine.device.type != snap.allocatable.device.type):
+        fail(f"learned: the Scheduler built {type(sched.engine).__name__}")
+    for pod in host_backlog(port, HOST_BACKLOG, 1):
+        sched.submit(pod)
+    cycles = drain_cycles(torch, port, sched, clock, running)
+    check_device_route("learned host loop", sched, cycles)
+    bound = sum(m.pods_bound for m, _, _ in cycles)
+    if bound < HOST_BACKLOG // 2:
+        fail(f"learned host loop: {bound} pods bound")
+    host_launches = {k: sum(ln[k] for _, ln, _ in cycles) for k in port["fused"].launches}
+    if host_launches["auction_bid"] < len(cycles):
+        fail(f"learned host loop: K3 launched {host_launches}")
+    launches["host_loop"] = host_launches
+    lat = [m.cycle_seconds for m, _, _ in cycles]
+    emit({"phase": "learned_host_loop", "config": "host-10k", "nodes": HOST_NODES,
+          "backlog": HOST_BACKLOG, "cycles": len(cycles), "pods_bound": bound,
+          "pods_per_s": bound / sum(lat), "cycle_ms_runs": [x * 1e3 for x in lat],
+          "engine_s_runs": [m.engine_seconds for m, _, _ in cycles],
+          "launches": host_launches})
+
+    # the sidecar as `--learned-checkpoint` builds it
+    srv = port["server"]
+    args = srv.build_parser().parse_args(
+        ["--host", "127.0.0.1", "--port", "0", "--device", "cuda",
+         "--learned-checkpoint", str(path)])
+    server, port_no, service = srv.server_from_args(args)
+    server.start()
+    client = port["RemoteEngine"](f"127.0.0.1:{port_no}", deadline_seconds=600.0)
+    try:
+        if not isinstance(service._engine, L.LearnedEngine):
+            fail("learned sidecar: the server does not serve a LearnedEngine")
+        host0 = type(snap)(*[t.cpu().numpy() for t in snap])
+        win0 = type(window)(*[f.cpu().numpy() for f in window])
+        host_w = type(pods_w)(*[f.cpu().numpy() for f in pods_w])
+        rows = {}
+        for name, call, inproc in (
+            ("batch", lambda: client.schedule_batch(host0, win0, policy="learned",
+                                                    assigner="auction", **LEARNED_KW),
+             lambda: engine.schedule_batch(snap, window, assigner="auction", **LEARNED_KW)),
+            ("greedy_backlog", lambda: client.schedule_windows(
+                host0, host_w, policy="learned", assigner="greedy", **LEARNED_KW),
+             lambda: engine.schedule_windows(snap, pods_w, assigner="greedy", **LEARNED_KW)),
+        ):
+            reply, ln = counted(torch, port, call)
+            check_bridge_equal(f"learned sidecar {name}", reply, inproc())
+            launches[f"sidecar_{name}"] = ln
+            rows[name] = rpc_timing(torch, port, client, call, inproc)
+        emit({"phase": "learned_sidecar", "config": "gpu-10kx10k", "bitwise": True,
+              **{f"{k}_{m}": v for k, r in rows.items() for m, v in r.items()
+                 if m in ("rpc_ms", "inprocess_ms", "engine_seconds")}})
+    finally:
+        client.close()
+        server.stop(grace=None)
+    emit({"phase": "learned_seconds", "seconds": time.perf_counter() - t0})
+    return launches, engine
+
+
+def warm_pair(torch, what, run, run_dense) -> dict:
+    """A sharded call against its dense counterpart: each once untimed
+    (the results bitwise equal), then each the median of 3."""
+    check_equal(torch, f"{what} (vs dense)", run(), run_dense())
+    runs, _ = wall_ms(torch, run)
+    dense_runs, _ = wall_ms(torch, run_dense)
+    return {"ms": statistics.median(runs), "ms_runs": runs,
+            "dense_ms": statistics.median(dense_runs), "dense_ms_runs": dense_runs}
+
+
+def mesh_delta_cycles(torch, port, se, dense, snap, window, kw, rng) -> dict:
+    """Phase 12's resident delta cycles on the mesh: one full upload, then
+    MESH_RESIDENT_CYCLES delta cycles (next_host_snapshot, snapshot_delta_np),
+    each bitwise the dense engine's schedule_batch of the same host build;
+    per delta cycle the routed bytes per shard, the host-to-device bytes
+    and wall ms, and K1-K4 launches."""
+    host = type(snap)(*[t.cpu().numpy() for t in snap])
+    se.invalidate_resident()
+    res = se.schedule_resident(host, window, delta=None, epoch=1, **kw)
+    if se.resident_used_delta:
+        fail("mesh resident: the first cycle did not upload in full")
+    rows = []
+    for epoch in range(2, 2 + MESH_RESIDENT_CYCLES):
+        new, _ = next_host_snapshot(host, res.free_after, rng)
+        delta = snapshot_delta_np(port, host, new)
+        torch.cuda.synchronize()
+        port["reset_transfers"]()
+        port["fused"].reset_launches()
+        t0 = time.perf_counter()
+        res = se.schedule_resident(new, window, delta=delta, epoch=epoch, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ln = dict(port["fused"].launches)
+        io = dict(port["transfers"])
+        if not se.resident_used_delta:
+            fail(f"mesh resident: delta cycle {epoch} uploaded in full")
+        check_equal(torch, f"mesh resident cycle {epoch} (vs dense)", res,
+                    dense.schedule_batch(new, window, **kw))
+        rows.append({"ms": ms, "shard_delta_bytes": list(se.shard_delta_bytes),
+                     "h2d_bytes": io["h2d_bytes"], "launches": ln})
+        host = new
+    return {"cycles": rows}
+
+
+def run_mesh(torch, port, snap, pods, learned_engine):
+    """Phase 21: the node-sharded engine on one card, gpu-10kx10k, meshes of
+    cuda:0 four times and once (make_mesh(n, device=cuda:0)). Per mesh, the
+    8 x 1,024-pod backlog through ShardedEngine on the fused path
+    (normalizer "none": K1 once per shard per window, counted, and no other
+    kernel) and on the composed min-max path, for the auction and for
+    greedy (greedy over MESH_GREEDY_WINDOWS windows: its election is a
+    chain of small launches per pod), each bitwise (decisions, free_after,
+    n_assigned) the dense TorchEngine's with affinity_aware=False. Every
+    timed call, sharded or dense, runs once untimed first (the sharded
+    one counted and checked there), then is the median of 3; phase
+    12's resident delta cycles on the 4-shard fused auction with bytes per
+    shard; make_sharded_learned_fn on phase 20's engine (both assigners,
+    one window and the auction backlog) bitwise the dense LearnedEngine's;
+    Scheduler(sharded_engine=True) on the host-10k loop (the default mesh:
+    one shard on one card) with bindings equal to the Scheduler on
+    TorchEngine(); the in-process sidecar built by the server's command
+    line with the shipped manifest's options (--mesh-devices 4 on cuda:0,
+    the fused auction), its backlog reply bitwise the in-process dense
+    call. Prints each call's ms beside the dense call's. Returns the
+    launches by run."""
+    P, L = port["parallel"], port["learned"]
+    t0 = time.perf_counter()
+    dev = snap.allocatable.device
+    dense = port["TorchEngine"]()
+    meshes = {MESH_SHARDS: P.make_mesh(MESH_SHARDS, device=dev), 1: P.make_mesh(1, device=dev)}
+    window = type(pods)(*[f[:WINDOW] for f in pods])
+    n_nodes = snap.allocatable.shape[0]
+    launches = {}
+    for shards, mesh in meshes.items():
+        se = P.ShardedEngine(mesh)
+        for name, kw in MESH_CASES.items():
+            n_windows = MESH_GREEDY_WINDOWS if kw["assigner"] == "greedy" else N_WINDOWS
+            _, pods_w = backlog_windows(port, pods, n_windows)
+            run_dense = lambda: dense.schedule_windows(  # noqa: E731
+                snap, pods_w, affinity_aware=False, **kw)
+            run = lambda: se.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+            want = run_dense()
+            dense_runs, _ = wall_ms(torch, run_dense)
+            torch.cuda.synchronize()
+            port["fused"].reset_launches()
+            got = run()
+            torch.cuda.synchronize()
+            ln = dict(port["fused"].launches)
+            k1 = n_windows * shards if kw.get("fused") else 0
+            expect_launches(f"mesh {shards} {name}", ln, {
+                "masked_score": k1, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0})
+            check_equal(torch, f"mesh {shards} {name} (vs dense)", got, want)
+            check_backlog(torch, f"mesh {shards} {name}", got, n_windows, n_nodes, 0.5)
+            launches[f"{shards}_{name}"] = ln
+            runs, _ = wall_ms(torch, run)
+            emit({"phase": f"mesh{shards}_{name}_schedule_windows", "config": "gpu-10kx10k",
+                  "shards": shards, "windows": n_windows, "window": WINDOW,
+                  "ms": statistics.median(runs), "ms_runs": runs,
+                  "dense_ms": statistics.median(dense_runs),
+                  "dense_ms_runs": dense_runs, "n_assigned": int(got.n_assigned),
+                  "launches": ln, "bitwise_dense": True})
+
+    se = P.ShardedEngine(meshes[MESH_SHARDS])
+    kw = MESH_CASES["k1_auction"]
+    resident = mesh_delta_cycles(torch, port, se, dense, snap, window, kw,
+                                 np.random.default_rng(21))
+    for i, row in enumerate(resident["cycles"]):
+        expect_launches(f"mesh resident delta cycle {i}", row["launches"], {
+            "masked_score": MESH_SHARDS, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0})
+    launches["resident"] = {k: sum(r["launches"][k] for r in resident["cycles"])
+                            for k in port["fused"].launches}
+    emit({"phase": "mesh_resident", "config": "gpu-10kx10k", "shards": MESH_SHARDS,
+          **resident})
+
+    # the learned scorer on the mesh
+    _, pods_w = backlog_windows(port, pods)
+    rows = {}
+    for assigner in ("auction", "greedy"):
+        kw = dict(assigner=assigner, normalizer="min_max")
+        fn = L.make_sharded_learned_fn(learned_engine.params, meshes[MESH_SHARDS],
+                                       model=learned_engine.model, **kw)
+        rows[f"{assigner}_window"] = warm_pair(
+            torch, f"mesh learned {assigner} window", lambda: fn(snap, window),
+            lambda: learned_engine.schedule_batch(snap, window, affinity_aware=False, **kw))
+    wfn = L.make_sharded_learned_fn(learned_engine.params, meshes[MESH_SHARDS], windows=True,
+                                    model=learned_engine.model, assigner="auction",
+                                    normalizer="min_max")
+    rows["auction_backlog"] = warm_pair(
+        torch, "mesh learned auction backlog", lambda: wfn(snap, pods_w),
+        lambda: learned_engine.schedule_windows(
+            snap, pods_w, assigner="auction", affinity_aware=False, normalizer="min_max"))
+    emit({"phase": "mesh_learned", "shards": MESH_SHARDS, "bitwise_dense": True, **rows})
+
+    # the host loop on ShardedEngine (the default mesh: every card, here one)
+    nodes, advisor = port["gen_host_cluster"](HOST_NODES, seed=0)
+    binds, cycle_ms, sharded_cycles, host_shards = {}, {}, 0, 0
+    for name, cfg in (("dense", dict(HOST_CFG)), ("sharded", dict(HOST_CFG, sharded_engine=True))):
+        running = []
+        engine = port["TorchEngine"]() if name == "dense" else None
+        sched, clock = host_scheduler(port, engine, nodes, advisor, running, cfg)
+        for pod in host_backlog(port, HOST_BACKLOG, 1):
+            sched.submit(pod)
+        cycles = drain_cycles(torch, port, sched, clock, running)
+        check_device_route(f"mesh host loop ({name})", sched, cycles)
+        binds[name] = [(b.pod.name, b.node_name) for b in sched.binder.bindings]
+        cycle_ms[name] = [m.cycle_seconds * 1e3 for m, _, _ in cycles]
+        if name == "sharded":
+            if not isinstance(sched.engine, P.ShardedEngine):
+                fail(f"mesh host loop: the Scheduler built {type(sched.engine).__name__}")
+            sharded_cycles = sched.totals["sharded_cycles"]
+            host_shards = sched.engine.n_shards
+            launches["host_loop"] = {k: sum(ln[k] for _, ln, _ in cycles)
+                                     for k in port["fused"].launches}
+    if binds["sharded"] != binds["dense"] or sharded_cycles <= 0:
+        fail(f"mesh host loop: bindings differ from the dense Scheduler's "
+             f"({len(binds['sharded'])} vs {len(binds['dense'])}), {sharded_cycles} "
+             "sharded cycles")
+    emit({"phase": "mesh_host_loop", "config": "host-10k", "shards": host_shards,
+          "pods_bound": len(binds["sharded"]),
+          "sharded_cycles": sharded_cycles, "cycle_ms": cycle_ms["sharded"],
+          "dense_cycle_ms": cycle_ms["dense"], "bindings_equal_dense": True})
+
+    # the sidecar as the shipped manifest's --mesh-devices 4 builds it
+    srv = port["server"]
+    args = srv.build_parser().parse_args(
+        ["--host", "127.0.0.1", "--port", "0", "--device", str(dev),
+         "--mesh-devices", str(MESH_SHARDS), "--assigner", "auction", "--normalizer", "none",
+         "--fused"])
+    server, port_no, service = srv.server_from_args(args)
+    if not isinstance(service._engine, P.ShardedEngine) or service.mesh_devices != MESH_SHARDS:
+        fail(f"mesh sidecar: the server serves {type(service._engine).__name__}")
+    server.start()
+    client = port["RemoteEngine"](f"127.0.0.1:{port_no}", deadline_seconds=600.0)
+    try:
+        host0 = type(snap)(*[t.cpu().numpy() for t in snap])
+        host_w = type(pods_w)(*[f.cpu().numpy() for f in pods_w])
+        kw = MESH_CASES["k1_auction"]
+        call = lambda: client.schedule_windows(host0, host_w, **kw)  # noqa: E731
+        inproc = lambda: dense.schedule_windows(  # noqa: E731
+            snap, pods_w, affinity_aware=False, **kw)
+        reply, ln = counted(torch, port, call)
+        expect_launches("mesh sidecar backlog", ln, {
+            "masked_score": N_WINDOWS * MESH_SHARDS, "row_stats": 0, "auction_bid": 0,
+            "greedy_scan": 0})
+        check_bridge_equal("mesh sidecar backlog", reply, inproc())
+        launches["sidecar_backlog"] = ln
+        timing = rpc_timing(torch, port, client, call, inproc)
+        if 'sharded_cycles_total{rpc="schedule_windows"}' not in service.render_metrics():
+            fail("mesh sidecar: sharded_cycles_total did not count the backlog")
+        emit({"phase": "mesh_sidecar", "shards": MESH_SHARDS, "bitwise_dense": True,
+              "launches": ln, **{k: v for k, v in timing.items()
+                                 if k in ("rpc_ms", "inprocess_ms", "engine_seconds")}})
+    finally:
+        client.close()
+        server.stop(grace=None)
+    emit({"phase": "mesh_seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def load_port() -> dict:
     """The port's functions the phases call, by name (a CPU rehearsal
     passes its own dict); fails when the port is not importable or
     imports jax."""
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
+        from kubernetes_scheduler_tpu_torch import parallel
+        from kubernetes_scheduler_tpu_torch.bridge import server
         from kubernetes_scheduler_tpu_torch.bridge.client import RemoteEngine
         from kubernetes_scheduler_tpu_torch.bridge.server import make_server
         from kubernetes_scheduler_tpu_torch.cli import main as cli_main
@@ -3077,6 +3513,7 @@ def load_port() -> dict:
             SnapshotDelta,
             build_fused_layout,
             compute_free_capacity,
+            compute_scores,
             compute_soft_scores,
             fused_score_operands,
             make_affinity_state,
@@ -3092,6 +3529,7 @@ def load_port() -> dict:
         from kubernetes_scheduler_tpu_torch.host.shadow import ShadowScheduler
         from kubernetes_scheduler_tpu_torch.host.types import Container, MatchExpression, Pod
         from kubernetes_scheduler_tpu_torch.kube.source import KubeBinder
+        from kubernetes_scheduler_tpu_torch.models import learned
         from kubernetes_scheduler_tpu_torch.ops import _build, assign, fused
         from kubernetes_scheduler_tpu_torch.ops.assign import (
             NEG,
@@ -3149,7 +3587,8 @@ def load_port() -> dict:
         pod_batch_from_record=pod_batch_from_record,
         engine_kw_from_record=engine_kw_from_record, read_spans=read_spans,
         make_server=make_server, RemoteEngine=RemoteEngine, cli_main=cli_main,
-        KubeBinder=KubeBinder, to_host=to_host,
+        KubeBinder=KubeBinder, to_host=to_host, learned=learned, parallel=parallel,
+        server=server, compute_scores=compute_scores,
     )
     return port
 
@@ -3282,12 +3721,21 @@ def main() -> None:
         t0 = time.perf_counter()
         live_launches = run_live_cluster(torch, port, work, address)
         emit({"phase": "live_cluster_seconds", "seconds": time.perf_counter() - t0})
+        if server is not None:
+            server.stop(grace=None)
+            server = None
+
+        # ---- 20. the learned scorer at full width ---------------------------
+        learned_launches, learned_engine = run_learned(torch, port, snap, pods, work)
+
+        # ---- 21. the node-sharded engine on one card ------------------------
+        mesh_launches = run_mesh(torch, port, snap, pods, learned_engine)
     finally:
         if server is not None:
             server.stop(grace=None)
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 20. the kernels line and the result ----------------------------
+    # ---- 22. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -3312,6 +3760,8 @@ def main() -> None:
             "scenario_launches": launches_of(scenario_launches, name),
             "bridge_launches": launches_of(bridge_launches, name),
             "live_cluster_launches": launches_of(live_launches, name),
+            "learned_launches": launches_of(learned_launches, name),
+            "mesh_launches": launches_of(mesh_launches, name),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

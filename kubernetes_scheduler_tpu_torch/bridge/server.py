@@ -9,10 +9,10 @@ hand-written against the method paths in schedule.proto.
 The port's copy of kubernetes_scheduler_tpu/bridge/server.py: the engine
 is one TorchEngine on `device` (cuda unless the caller passes another;
 it raises without CUDA), every reply reads its result with one
-device.to_host, and on-demand profiles run under torch.profiler. The
-mesh-sharded engine (--mesh-devices > 1) and the learned scorer
-(--learned-checkpoint, policy "learned") raise NotImplementedError
-naming ROADMAP queue A items 10 and 9.
+device.to_host, and on-demand profiles run under torch.profiler.
+--learned-checkpoint serves a LearnedEngine on `device`; --mesh-devices
+N > 1 serves parallel.engine.ShardedEngine (scored by the learned towers
+with a checkpoint), its options fixed at startup.
 
 Run:  python -m kubernetes_scheduler_tpu_torch.bridge.server --port 50051
 """
@@ -45,14 +45,9 @@ _DECISION_FIELDS = ("node_idx", "free_after", "n_assigned")
 # exposure to clients that churn session ids.
 _MAX_CACHE_SESSIONS = 8
 
-MESH_NOT_PORTED = (
-    "the mesh-sharded engine (--mesh-devices > 1) is not ported to the "
-    "PyTorch package yet: ROADMAP queue A, item 10 (the sharded engine)"
-)
-LEARNED_NOT_PORTED = (
-    "the learned scorer (policy 'learned', --learned-checkpoint) is not "
-    "ported to the PyTorch package yet: ROADMAP queue A, item 9 (the "
-    "learned scorer)"
+MULTIHOST_NOT_PORTED = (
+    "--mesh-hosts > 1 (a mesh across hosts) is not ported to the PyTorch "
+    "package yet: ROADMAP queue A, item 10b (make_mesh_multihost)"
 )
 
 
@@ -81,11 +76,8 @@ def _engine_kw(
 ) -> dict:
     """The engine call's options from the wire; proto3 empty strings take
     the RPC's defaults (`assigner`, `normalizer`)."""
-    policy = request.policy or "balanced_cpu_diskio"
-    if policy == "learned":
-        raise NotImplementedError(LEARNED_NOT_PORTED)
     kw = dict(
-        policy=policy,
+        policy=request.policy or "balanced_cpu_diskio",
         assigner=request.assigner or assigner,
         normalizer=request.normalizer or normalizer,
         fused=request.fused,
@@ -141,17 +133,28 @@ class EngineService:
         span_path: str | None = None,
         profile_path: str | None = None,
         step_slo_ms: float = 0.0,
-        mesh_devices: int = 0,
+        pinned_options: dict | None = None,
     ):
-        if mesh_devices > 1:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        # serve a custom engine (an object with TorchEngine's surface)
+        # serve a custom engine (an object with TorchEngine's surface,
+        # e.g. models.learned.LearnedEngine or parallel.engine.ShardedEngine)
         # instead of a TorchEngine of our own; fixed for the server's
         # lifetime
         if engine_override is None:
             engine_override = engine.TorchEngine(device=device)
         self._engine = engine_override
         self.device = getattr(self._engine, "device", None) or resolve_device(device)
+        # Preempt runs on the dense engine of the same device where the
+        # served one has no preempt (the sharded and learned engines), as
+        # the reference's mesh sidecar runs it on its dense engine
+        self._preempt_engine = (
+            self._engine if hasattr(self._engine, "preempt")
+            else engine.TorchEngine(device=self.device)
+        )
+        # the engine options a mesh sidecar fixes at startup (policy,
+        # assigner, normalizer, fused, score_plugins; auction knobs as
+        # defaults): requests asking for anything else fail loud, as the
+        # reference's sidecar fails them against its prebuilt programs
+        self._pinned = pinned_options
         self.cycles_served = 0
         # capability switches, read dynamically by the handlers (so a
         # test — or a canary rollout — can downgrade a live server and
@@ -205,6 +208,21 @@ class EngineService:
             "resident_applies_total",
             "Resident-state cluster uploads applied (delta vs full)",
             labels=("upload",),
+        )
+        # mesh-sharded serving (--mesh-devices > 1): RPCs served by the
+        # sharded programs, and each applied delta's routed per-shard
+        # payload (the sidecar twin of the host's shard_delta_bytes)
+        self.mesh_devices = int(getattr(self._engine, "n_shards", 0))
+        self.metrics_sharded = observe.Counter(
+            "sharded_cycles_total",
+            "RPCs served by this sidecar's mesh-sharded engine",
+            labels=("rpc",),
+        )
+        self.metrics_shard_bytes = observe.Counter(
+            "shard_delta_bytes_total",
+            "Routed SnapshotDelta payload bytes per owning node shard "
+            "(mesh-sharded resident sessions)",
+            labels=("shard",),
         )
         self.metrics_sessions = observe.Gauge(
             "resident_sessions_count",
@@ -350,6 +368,8 @@ class EngineService:
             self.metrics_sessions,
             self.metrics_gang_masked,
             self.metrics_slo,
+            self.metrics_sharded,
+            self.metrics_shard_bytes,
         ]
         out = []
         for c in collectors:
@@ -365,6 +385,8 @@ class EngineService:
         observe.SHIPPED_SPANS)."""
         self.metrics_step.observe(dt, rpc=rpc)
         self.metrics_rpcs.inc(rpc=rpc)
+        if self.mesh_devices:
+            self.metrics_sharded.inc(rpc=rpc)
         if self.step_slo_ms > 0 and dt * 1e3 > self.step_slo_ms:
             self.metrics_slo.inc(rpc=rpc)
             log.warning(
@@ -436,6 +458,8 @@ class EngineService:
             with self._lock:
                 self.resident_deltas_served += 1
             self.metrics_resident.inc(upload="delta")
+            if self.mesh_devices and delta.node_mask.shape[0] % self.mesh_devices == 0:
+                self._count_shard_bytes(st["snapshot"].node_mask, delta)
         else:
             snapshot = codec.unpack_fields(
                 engine.SnapshotArrays, request.snapshot, cache=snap_cache
@@ -447,6 +471,51 @@ class EngineService:
             "snapshot": snapshot, "epoch": int(request.resident_epoch),
         }
         return snapshot
+
+    def _count_shard_bytes(self, prev_mask, delta) -> None:
+        """Per-shard routed payload of the delta just applied, measured as
+        ShardedEngine measures it (steady-state mask bytes excluded: a
+        shard's retained mask ships nothing)."""
+        from kubernetes_scheduler_tpu_torch.host.snapshot import shard_snapshot_delta
+
+        prev_mask = np.asarray(prev_mask, bool)
+        mask_changed = not np.array_equal(prev_mask, np.asarray(delta.node_mask, bool))
+        for shard, routed in shard_snapshot_delta(
+            delta, self.mesh_devices, prev_node_mask=prev_mask
+        ).items():
+            self.metrics_shard_bytes.inc(
+                engine.snapshot_nbytes(routed)
+                - (0 if mask_changed else routed.node_mask.nbytes),
+                shard=str(shard),
+            )
+
+    def _pin(self, request, context, kw: dict) -> dict:
+        """`kw` under the startup options of a mesh sidecar (unchanged
+        without them): a request's policy, assigner, normalizer or
+        score-plugin list other than the fixed one aborts
+        INVALID_ARGUMENT; empty fields and `fused` take the fixed values,
+        and the auction knobs stay per request."""
+        pin = self._pinned
+        if pin is None:
+            return kw
+        for key in ("policy", "assigner", "normalizer"):
+            want = getattr(request, key)
+            if want and want != pin[key]:
+                context.abort(
+                    grpc.StatusCode.INVALID_ARGUMENT,
+                    f"sidecar's sharded engine is fixed to {key}={pin[key]!r}; "
+                    f"request asked for {want!r}",
+                )
+        if _score_plugins(request) != pin["score_plugins"]:
+            context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"sidecar's sharded engine is built with score_plugins="
+                f"{pin['score_plugins']!r}; request asked for {_score_plugins(request)!r}",
+            )
+        fixed = {k: pin[k] for k in ("policy", "assigner", "normalizer", "fused",
+                                     "score_plugins")}
+        knobs = {k: pin[k] for k in ("auction_rounds", "auction_price_frac")}
+        return {**knobs, **kw, **fixed}
 
     def _run(self, call, tid: int | None):
         """One engine call under the device lock (and under the profiler
@@ -482,10 +551,11 @@ class EngineService:
             # sidecar restarted or the session was evicted: the client
             # clears its cache and resends everything in full
             context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
-        except (ValueError, TypeError, NotImplementedError) as e:
+        except (ValueError, TypeError) as e:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
         t0 = time.perf_counter()
         try:
+            kw = self._pin(request, context, kw)
             res = self._run(
                 lambda: self._engine.schedule_batch(snapshot, pods, **kw),
                 tid,
@@ -539,10 +609,11 @@ class EngineService:
             kw = _engine_kw(request, assigner="auction", normalizer="none")
         except codec.FieldCacheMiss as e:
             context.abort(grpc.StatusCode.FAILED_PRECONDITION, str(e))
-        except (ValueError, TypeError, NotImplementedError) as e:
+        except (ValueError, TypeError) as e:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
         t0 = time.perf_counter()
         try:
+            kw = self._pin(request, context, kw)
             res = self._run(
                 lambda: self._engine.schedule_windows(snapshot, pods_w, **kw),
                 tid,
@@ -588,7 +659,7 @@ class EngineService:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
         t0 = time.perf_counter()
         res = self._run(
-            lambda: self._engine.preempt(snapshot, pods, victims, k_cap=k_cap),
+            lambda: self._preempt_engine.preempt(snapshot, pods, victims, k_cap=k_cap),
             None,
         )
         dt = time.perf_counter() - t0
@@ -631,10 +702,11 @@ def make_server(
     span_path: str | None = None,
     profile_path: str | None = None,
     step_slo_ms: float = 0.0,
-    mesh_devices: int = 0,
+    pinned_options: dict | None = None,
 ) -> tuple[grpc.Server, int, EngineService]:
     """Build (server, bound_port, service) for an engine on `device`
-    (cuda unless given; raises without CUDA). Device access stays
+    (cuda unless given; raises without CUDA), or for `engine_override`
+    with requests held to `pinned_options` (EngineService._pin). Device access stays
     single-writer regardless of max_workers (EngineService._device_lock
     serializes the compute sections); the default of 2 workers keeps
     Health answering while a pipelined host's ScheduleBatch is in
@@ -645,7 +717,7 @@ def make_server(
         span_path=span_path,
         profile_path=profile_path,
         step_slo_ms=step_slo_ms,
-        mesh_devices=mesh_devices,
+        pinned_options=pinned_options,
     )
     handlers = grpc.method_handlers_generic_handler(
         SERVICE,
@@ -700,13 +772,54 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=0,
         help="shard the node axis over this many devices (0 = single "
-        "device; > 1 is not ported yet, ROADMAP queue A item 10)",
+        "device): with --device cuda the first N cards, with cpu or "
+        "cuda:K that one device N times",
+    )
+    parser.add_argument(
+        "--mesh-hosts", type=int, default=1,
+        help="with --mesh-devices: split the mesh into this many host "
+        "groups (> 1 is not ported yet, ROADMAP queue A item 10b)",
+    )
+    parser.add_argument("--policy", default="balanced_cpu_diskio")
+    parser.add_argument(
+        "--assigner", default="greedy", choices=["greedy", "auction"],
+        help="assignment algorithm baked into the sharded engine when "
+        "--mesh-devices is set (the dense engine honors the per-request "
+        "assigner field instead)",
+    )
+    parser.add_argument(
+        "--auction-rounds", type=int, default=1024,
+        help="max auction rounds for the sharded auction assigner",
+    )
+    parser.add_argument(
+        "--auction-price-frac", type=float, default=1.0,
+        help="price step (fraction of the unit row range) for the sharded "
+        "auction assigner",
+    )
+    parser.add_argument(
+        "--normalizer", default="min_max", choices=["min_max", "softmax", "none"],
+        help="score normalizer baked into the sharded engine when "
+        "--mesh-devices is set",
+    )
+    parser.add_argument(
+        "--fused", action="store_true",
+        help="score + resource fit through kernel K1 on each shard of the "
+        "sharded engine (requires --normalizer none and the "
+        "balanced_cpu_diskio policy)",
+    )
+    parser.add_argument(
+        "--score-plugins", default=None,
+        help='JSON list of {"name": ..., "weight": N}: weighted multi-plugin '
+        "scoring baked into the sharded engine when --mesh-devices is set "
+        "(the dense engine honors the request's score_plugins instead)",
     )
     parser.add_argument(
         "--learned-checkpoint",
         default=None,
-        help="serve the learned scorer (not ported yet, ROADMAP queue A "
-        "item 9)",
+        help="serve the learned two-tower policy restored from this "
+        "checkpoint (models/learned.save_checkpoint's directory, not "
+        "orbax; policy becomes 'learned'; shards over the mesh when "
+        "--mesh-devices is set)",
     )
     parser.add_argument(
         "--metrics-port", type=int, default=0,
@@ -737,23 +850,91 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
-    try:
+def server_from_args(args) -> tuple[grpc.Server, int, EngineService]:
+    """make_server for parsed command-line options: the learned engine of
+    --learned-checkpoint on --device, and with --mesh-devices N > 1 a
+    ShardedEngine over N shards (the first N cards for --device cuda,
+    else that one device N times; the learned towers score each shard
+    with a checkpoint) with the mesh options pinned. Raises SystemExit
+    for conflicting options and NotImplementedError for --mesh-hosts > 1."""
+    engine_override = None
+    policy = args.policy
+    if args.learned_checkpoint:
+        if policy not in ("balanced_cpu_diskio", "learned"):
+            raise SystemExit(
+                f"--policy {policy!r} conflicts with --learned-checkpoint "
+                "(which serves policy 'learned')"
+            )
+        from kubernetes_scheduler_tpu_torch.models.learned import load_learned_engine
+
+        engine_override = load_learned_engine(args.learned_checkpoint, device=args.device)
+        policy = "learned"
+    score_plugins = None
+    if args.score_plugins:
+        import json
+
+        from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
+
+        try:
+            score_plugins = SchedulerConfig.from_dict(
+                {"score_plugins": json.loads(args.score_plugins)}
+            ).score_plugins_tuple()
+        except ValueError as e:
+            raise SystemExit(f"--score-plugins: {e}") from None
+        if args.fused:
+            raise SystemExit("--score-plugins is incompatible with --fused")
         if args.learned_checkpoint:
-            raise NotImplementedError(LEARNED_NOT_PORTED)
-        server, port, service = make_server(
-            f"{args.host}:{args.port}",
-            device=args.device,
-            span_path=args.span_path,
-            profile_path=args.profile_path,
-            step_slo_ms=args.step_slo_ms,
-            mesh_devices=args.mesh_devices,
-        )
-    except NotImplementedError as e:
-        log.error("%s", e)
-        return 2
+            raise SystemExit(
+                "--score-plugins is incompatible with --learned-checkpoint "
+                "(the learned scorer replaces the policy)"
+            )
+        if args.mesh_devices <= 1:
+            raise SystemExit(
+                "--score-plugins only configures the sharded engine "
+                "(--mesh-devices > 1); the dense engine honors the "
+                "request-carried score_plugins field instead"
+            )
+    pinned = None
+    if args.mesh_devices > 1:
+        from kubernetes_scheduler_tpu_torch.parallel.engine import ShardedEngine, check_options
+        from kubernetes_scheduler_tpu_torch.parallel.mesh import make_mesh
+
+        if args.mesh_hosts > 1:
+            raise NotImplementedError(MULTIHOST_NOT_PORTED)
+        if args.device is None or str(args.device) == "cuda":
+            mesh = make_mesh(args.mesh_devices)
+        else:
+            mesh = make_mesh(args.mesh_devices, device=args.device)
+        score_fn = None
+        if engine_override is not None:
+            from kubernetes_scheduler_tpu_torch.models.learned import sharded_learned_score_fn
+
+            score_fn = sharded_learned_score_fn(engine_override.params, mesh,
+                                                model=engine_override.model)
+        pinned = dict(policy=policy, assigner=args.assigner, normalizer=args.normalizer,
+                      fused=args.fused, score_plugins=score_plugins)
+        try:
+            # the options a request may not change fail here, at startup
+            check_options(score_fn=score_fn, **pinned)
+        except ValueError as e:
+            raise SystemExit(f"--mesh-devices: {e}") from None
+        pinned.update(auction_rounds=args.auction_rounds,
+                      auction_price_frac=args.auction_price_frac)
+        engine_override = ShardedEngine(mesh, score_fn=score_fn)
+    return make_server(
+        f"{args.host}:{args.port}",
+        device=args.device,
+        engine_override=engine_override,
+        span_path=args.span_path,
+        profile_path=args.profile_path,
+        step_slo_ms=args.step_slo_ms,
+        pinned_options=pinned,
+    )
+
+
+def serve(server, port: int, service: EngineService, args) -> int:
+    """Run a built server until SIGTERM / ctrl-c, with its /metrics when
+    --metrics-port is set; drains in-flight RPCs on the way out."""
     exporter = None
     if args.metrics_port:
         from kubernetes_scheduler_tpu_torch.host.observe import HttpMetricsServer
@@ -765,8 +946,8 @@ def main(argv=None) -> int:
         log.info("sidecar metrics on %s:%d", args.metrics_host, mport)
     server.start()
     log.info(
-        "engine sidecar serving on %s:%d (device=%s)",
-        args.host, port, service.device,
+        "engine sidecar serving on %s:%d (device=%s, mesh devices %d)",
+        args.host, port, service.device, service.mesh_devices,
     )
     try:
         server.wait_for_termination()
@@ -783,6 +964,17 @@ def main(argv=None) -> int:
         if service.spans is not None:
             service.spans.close()
     return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    try:
+        server, port, service = server_from_args(args)
+    except NotImplementedError as e:
+        log.error("%s", e)
+        return 2
+    return serve(server, port, service, args)
 
 
 if __name__ == "__main__":

@@ -20,10 +20,11 @@ upstream framework" is host.Scheduler.
 The port's copy of kubernetes_scheduler_tpu/cli.py (`python -m
 kubernetes_scheduler_tpu_torch`): every command that builds an engine
 builds TorchEngine(device=--device), cuda by default, which raises
-without CUDA. `bench`, the learned scorer (`--learned-checkpoint`,
-policy "learned") and the mesh-sharded engine (`--mesh-devices`,
-`sharded_engine`) are not ported yet and exit 2 naming ROADMAP queue A
-items 11, 9 and 10.
+without CUDA; policy "learned" (`--learned-checkpoint`) builds the
+LearnedEngine and `sharded_engine` the ShardedEngine there instead
+(host.scheduler.default_engine), and `sidecar --mesh-devices N` serves
+the sharded programs. `bench` is not ported yet and exits 2 naming
+ROADMAP queue A item 11.
 """
 
 from __future__ import annotations
@@ -47,31 +48,18 @@ BENCH_NOT_PORTED = (
 )
 
 
-def _check_ported(cfg: SchedulerConfig) -> None:
-    """Refuse, before any thread or socket starts, the options whose
-    modules the port does not have yet (the Scheduler's refusals, and a
-    learned checkpoint)."""
-    from kubernetes_scheduler_tpu_torch.host.scheduler import refuse_unported
-
-    refuse_unported(cfg)
-    if cfg.learned_checkpoint:
-        raise NotImplementedError(
-            "--learned-checkpoint: the learned scorer is not ported to the "
-            "PyTorch package yet: ROADMAP queue A, item 9 (the learned scorer)"
-        )
-
-
-def _engine(args):
-    """The cycle engine a command runs on: "local" is TorchEngine on
-    --device (cuda unless given; raises without CUDA), anything else a
-    sidecar's gRPC target."""
+def _engine(args, cfg: SchedulerConfig | None = None):
+    """The cycle engine a command runs on: "local" is the engine `cfg`
+    asks for (host.scheduler.default_engine: TorchEngine, or the learned
+    or sharded engine) on --device (cuda unless given; raises without
+    CUDA), anything else a sidecar's gRPC target."""
     if args.engine and args.engine != "local":
         from kubernetes_scheduler_tpu_torch.bridge.client import RemoteEngine
 
         return RemoteEngine(args.engine)
-    from kubernetes_scheduler_tpu_torch.engine import TorchEngine
+    from kubernetes_scheduler_tpu_torch.host.scheduler import default_engine
 
-    return TorchEngine(device=args.device)
+    return default_engine(cfg or SchedulerConfig(), device=args.device)
 
 
 def _load_config(args) -> SchedulerConfig:
@@ -101,7 +89,9 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--learned-checkpoint",
         dest="learned_checkpoint",
-        help="orbax checkpoint for policy=learned (models/learned.py)",
+        help="checkpoint for policy=learned (models/learned.save_checkpoint's "
+        "directory; not an orbax checkpoint: convert.learned_from_reference "
+        "carries the JAX package's parameters across)",
     )
     p.add_argument(
         "--no-tpu",
@@ -165,7 +155,7 @@ def cmd_scheduler_kube(args, cfg) -> int:
     )
     from kubernetes_scheduler_tpu_torch.kube.source import InformerCache, run_kube_loop
 
-    engine = _engine(args)
+    engine = _engine(args, cfg)
     client = KubeClient(_kube_config(args))
     # informer-style cache: nodes + assigned pods maintained by watch
     # threads, so cycles read local state instead of re-listing the
@@ -275,7 +265,6 @@ def cmd_scheduler(args) -> int:
     from kubernetes_scheduler_tpu_torch.sim.host_gen import gen_host_cluster, gen_host_pods
 
     cfg = _load_config(args)
-    _check_ported(cfg)
     if args.source == "kube":
         if args.replicas > 1:
             log.error(
@@ -303,7 +292,7 @@ def cmd_scheduler(args) -> int:
             )
         return _cmd_scheduler_replicated(args, cfg, nodes, advisor, pods)
 
-    engine = _engine(args)
+    engine = _engine(args, cfg)
 
     running: list = []
     sched = Scheduler(
@@ -538,11 +527,18 @@ def cmd_sidecar(args) -> int:
         argv += ["--profile-path", args.profile_path]
     if args.step_slo_ms:
         argv += ["--step-slo-ms", str(args.step_slo_ms)]
+    if args.learned_checkpoint:
+        argv += ["--learned-checkpoint", args.learned_checkpoint]
     if args.mesh_devices:
-        # the mesh options (--assigner, --normalizer, --fused and the
-        # auction knobs) configure the sharded engine, which the server
-        # refuses (ROADMAP queue A item 10)
-        argv += ["--mesh-devices", str(args.mesh_devices)]
+        # the mesh options configure the sharded engine's programs
+        argv += [
+            "--mesh-devices", str(args.mesh_devices),
+            "--assigner", args.assigner, "--normalizer", args.normalizer,
+            "--auction-rounds", str(args.auction_rounds),
+            "--auction-price-frac", str(args.auction_price_frac),
+        ]
+        if args.fused:
+            argv.append("--fused")
     return server.main(argv)
 
 
@@ -963,8 +959,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_flag(pc)
     pc.add_argument(
         "--mesh-devices", type=int, default=0,
-        help="shard the node axis over this many devices (> 1 is not "
-        "ported yet: exits 2, ROADMAP queue A item 10)",
+        help="shard the node axis over this many devices (0 = single "
+        "device): with --device cuda the first N cards, with cpu or "
+        "cuda:K that one device N times",
+    )
+    pc.add_argument(
+        "--learned-checkpoint", dest="learned_checkpoint", default=None,
+        help="serve the learned scorer from this checkpoint "
+        "(models/learned.save_checkpoint's directory, not orbax)",
     )
     pc.add_argument(
         "--assigner", default="greedy", choices=["greedy", "auction"],
@@ -979,7 +981,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pc.add_argument(
         "--fused", action="store_true",
-        help="fused score+fit on the sharded engine (mesh mode only)",
+        help="fused score+fit (kernel K1 per shard) on the sharded engine "
+        "(mesh mode only; requires --normalizer none)",
     )
     pc.set_defaults(fn=cmd_sidecar)
 

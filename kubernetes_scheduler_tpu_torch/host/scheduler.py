@@ -16,9 +16,8 @@ failure flips one cycle to scalar rather than stalling scheduling.
 The port's copy of kubernetes_scheduler_tpu/host/scheduler.py: the same
 loop, with TorchEngine (on cuda unless the caller passes an engine) as
 the default engine and one explicit device-to-host read per engine
-result (device.to_host). Options whose modules are not ported yet raise
-NotImplementedError naming their ROADMAP queue A item: policy="learned"
-(item 9) and sharded_engine (item 10).
+result (device.to_host); policy="learned" builds a LearnedEngine and
+sharded_engine a ShardedEngine (default_engine).
 """
 
 from __future__ import annotations
@@ -252,18 +251,59 @@ class _PendingCycle:
         return self._sched._complete_cycle_split(self._m, start, infl, t0)
 
 
-def refuse_unported(config) -> None:
-    """Raise NotImplementedError, naming its ROADMAP queue A item, for a
-    config option whose module the port does not have yet."""
+def default_engine(config: SchedulerConfig, *, device=None):
+    """The in-process engine `config` asks for, on `device` (cuda unless
+    given; RuntimeError without CUDA): a LearnedEngine for
+    policy="learned" (restored from config.learned_checkpoint, else
+    untrained parameters seeded from generator seed 0, with a warning),
+    a ShardedEngine for sharded_engine (config.mesh_devices shards; by
+    default sharded_device_count() CUDA devices, or one shard on an
+    explicit device), else TorchEngine."""
+    check_engine_options(config)
     if config.policy == "learned":
-        raise NotImplementedError(
-            "policy='learned' is not ported to the PyTorch package yet: "
-            "ROADMAP queue A, item 9 (the learned scorer)"
+        from kubernetes_scheduler_tpu_torch.models.learned import (
+            LearnedEngine,
+            init_train_state,
+            load_learned_engine,
         )
+
+        if config.learned_checkpoint:
+            return load_learned_engine(config.learned_checkpoint, device=device)
+        log.warning(
+            "policy='learned' with no learned_checkpoint: scheduling "
+            "with freshly initialized (UNTRAINED) scorer parameters"
+        )
+        state, model, _ = init_train_state(0, device=device)
+        return LearnedEngine(state.params, model=model, device=device)
     if config.sharded_engine:
-        raise NotImplementedError(
-            "sharded_engine is not ported to the PyTorch package yet: "
-            "ROADMAP queue A, item 10 (the sharded engine)"
+        from kubernetes_scheduler_tpu_torch.parallel import (
+            ShardedEngine,
+            make_mesh,
+            sharded_device_count,
+        )
+
+        if device is None:
+            mesh = make_mesh(config.mesh_devices or sharded_device_count())
+        else:
+            mesh = make_mesh(config.mesh_devices or 1, device=device)
+        return ShardedEngine(mesh)
+    from kubernetes_scheduler_tpu_torch.engine import TorchEngine
+
+    return TorchEngine(device=device)
+
+
+def check_engine_options(config: SchedulerConfig) -> None:
+    """ValueError for engine options that cannot be served together."""
+    if config.sharded_engine and config.policy == "learned":
+        raise ValueError(
+            "sharded_engine has no learned-policy path yet; use a "
+            "sharded sidecar with --learned-checkpoint instead"
+        )
+    if config.policy == "learned" and not config.feature_gates.tpu_batch_score:
+        raise ValueError(
+            "policy='learned' requires the engine path "
+            "(feature_gates.tpu_batch_score=True); the scalar "
+            "fallback only implements the yoda formula"
         )
 
 
@@ -285,12 +325,22 @@ class Scheduler:
     ):
         self.config = config
         self.advisor = advisor
-        refuse_unported(config)
-        if engine is None:
-            from kubernetes_scheduler_tpu_torch.engine import TorchEngine
+        check_engine_options(config)
+        if config.policy == "learned" and engine is not None:
+            from kubernetes_scheduler_tpu_torch.models.learned import LearnedEngine
 
+            if not isinstance(engine, LearnedEngine):
+                # a heuristic engine has no parameters to evaluate the
+                # learned policy with; failing loud beats every cycle
+                # erroring into the scalar yoda fallback forever
+                raise ValueError(
+                    "policy='learned' requires a LearnedEngine; got "
+                    f"{type(engine).__name__} (remote sidecars do not serve "
+                    "the learned policy)"
+                )
+        if engine is None:
             # the card by default: raises RuntimeError without CUDA
-            engine = TorchEngine()
+            engine = default_engine(config)
         self.engine = engine
         # auction knobs ride only engines whose call surface takes them
         # (TorchEngine's **kw and RemoteEngine's explicit params both do;

@@ -5,12 +5,8 @@ Two families:
   (the live BalancedCpuDiskIO plus the three dead/legacy alternates,
   pkg/yoda/score/algorithm.go) — zero parameters, pure kernels.
 - learned: a trainable two-tower scorer over pod/node features
-  (kubernetes_scheduler_tpu/models/learned.py).
-
-The port exports the heuristic half. The learned half is not ported yet:
-its names (NodeScorer, TrainState, init_train_state, make_features,
-train_step, LearnedEngine, load_learned_engine, ...) raise
-NotImplementedError naming ROADMAP queue A item 9.
+  (models/learned.py), resolved on first use so that importing the
+  registry does not build the engine.
 """
 
 from kubernetes_scheduler_tpu_torch.models.policy import (
@@ -33,15 +29,16 @@ LEARNED_NAMES = (
     "LearnedEngine",
     "load_learned_engine",
     "make_sharded_learned_fn",
+    "sharded_learned_score_fn",
 )
 
-__all__ = ["HEURISTIC_POLICIES", "POLICY_REGISTRY", "PolicyInfo", "get_policy"]
+__all__ = ["HEURISTIC_POLICIES", "POLICY_REGISTRY", "PolicyInfo", "get_policy",
+           *LEARNED_NAMES]
 
 
 def __getattr__(name):
     if name in LEARNED_NAMES:
-        raise NotImplementedError(
-            f"models.{name}: the learned scorer is not ported to the PyTorch "
-            "package yet: ROADMAP queue A, item 9 (the learned scorer)"
-        )
+        from kubernetes_scheduler_tpu_torch.models import learned
+
+        return getattr(learned, name)
     raise AttributeError(name)

@@ -66,14 +66,18 @@ class AffinityState(NamedTuple):
     node_mask: torch.Tensor          # [n] bool (the min-over-domains term)
 
 
-def tie_jitter(p: int, n: int, scale: float, *, device: torch.device) -> torch.Tensor:
+def tie_jitter(
+    p: int, n: int, scale: float, *, device: torch.device, col_offset: int = 0
+) -> torch.Tensor:
     """[p, n] float32 deterministic tie-break jitter in [0, scale): a
     counter-based hash of (row, column), bit-identical to the
     reference's uint32 arithmetic. The uint32 wrap-around is emulated in
     int64, masked to 32 bits after every multiply and add; the kept 24
-    bits convert to float32 exactly."""
+    bits convert to float32 exactly. `col_offset` is the global column of
+    the first one: a node shard hashes its GLOBAL columns, so the sharded
+    auction sees the values the dense one does."""
     r = torch.arange(p, dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    c = torch.arange(col_offset, col_offset + n, dtype=torch.int64, device=device)[None, :]
     x = (_mul32(r, 0x9E3779B9) + _mul32(c, 0x85EBCA6B) + 1) & _U32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)

@@ -545,7 +545,9 @@ def test_torch_slim_replies_and_rejected_options(port_client):
     assert not thin.scores.any() and full.scores.any()
     with pytest.raises(EngineUnavailable, match="INVALID_ARGUMENT"):
         port_client.schedule_batch(snap, pods, policy="nope")
-    with pytest.raises(EngineUnavailable, match="item 9"):
+    # a heuristic sidecar has no learned scorer: "learned" is an unknown
+    # policy to it (a --learned-checkpoint sidecar serves it)
+    with pytest.raises(EngineUnavailable, match="unknown policy 'learned'"):
         port_client.schedule_batch(snap, pods, policy="learned")
     bogus = port_client._channel.unary_unary(
         "/yodatpu.Engine/DoesNotExist",
@@ -557,11 +559,16 @@ def test_torch_slim_replies_and_rejected_options(port_client):
 
 
 def test_torch_server_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_server("127.0.0.1:0", device="cpu", mesh_devices=2)
-    assert port_server_mod.main(["--device", "cpu", "--mesh-devices", "2", "--port", "0"]) == 2
-    assert port_server_mod.main(
-        ["--device", "cpu", "--learned-checkpoint", "ckpt", "--port", "0"]) == 2
+    """A mesh across hosts (--mesh-hosts > 1) is the one sidecar option
+    still to port: exit 2 naming its ROADMAP item. Conflicting options
+    exit with a message before anything is built."""
+    argv = ["--device", "cpu", "--port", "0"]
+    assert port_server_mod.main([*argv, "--mesh-devices", "2", "--mesh-hosts", "2"]) == 2
+    with pytest.raises(SystemExit, match="only configures the sharded engine"):
+        port_server_mod.main([*argv, "--score-plugins", '[{"name": "least_allocated"}]'])
+    with pytest.raises(SystemExit, match="incompatible with --fused"):
+        port_server_mod.main([*argv, "--mesh-devices", "2", "--fused", "--score-plugins",
+                              '[{"name": "least_allocated"}]'])
     assert LocalEngine is TorchEngine
 
 

@@ -106,26 +106,36 @@ def test_torch_command_defaults_to_cuda():
 
 
 def test_torch_command_refuses_unported_options(capsys, tmp_path):
-    """bench, the learned scorer, the sharded engine and mesh sidecars
-    exit 2 naming their ROADMAP queue A items."""
+    """bench exits 2 naming ROADMAP queue A item 11; the learned scorer
+    (untrained, and from a checkpoint) and the sharded engine now
+    schedule on --device cpu, every pod placed or counted."""
     assert main(["bench"]) == 2
     assert "item 11" in capsys.readouterr().err
-    assert main(["scheduler", "--policy", "learned", *CPU]) == 2
-    assert "item 9" in capsys.readouterr().err
-    assert main(["scheduler", "--learned-checkpoint", str(tmp_path), *CPU]) == 2
-    assert "item 9" in capsys.readouterr().err
+    from kubernetes_scheduler_tpu_torch.models.learned import init_train_state, save_checkpoint
+
+    ckpt = tmp_path / "ckpt"
+    save_checkpoint(str(ckpt), init_train_state(3, device="cpu")[0])
     cfg = tmp_path / "cfg.json"
-    cfg.write_text(json.dumps({"sharded_engine": True}))
-    assert main(["scheduler", "--config", str(cfg), *CPU]) == 2
-    assert "item 10" in capsys.readouterr().err
-    assert main(["sidecar", "--port", "0", "--mesh-devices", "2", *CPU]) == 2
+    # the engine path pinned: at this size the adaptive dispatch would
+    # route the cycle to the scalar path
+    cfg.write_text(json.dumps({"sharded_engine": True, "mesh_devices": 4,
+                               "adaptive_dispatch": False, "min_device_work": 1}))
+    small = ["--nodes", "16", "--pods", "24", "--batch-window", "12"]
+    for extra in (["--policy", "learned"],
+                  ["--policy", "learned", "--learned-checkpoint", str(ckpt)],
+                  ["--config", str(cfg)]):
+        assert main(["scheduler", *small, *extra, *CPU]) == 0, extra
+        out = last_json(capsys)
+        assert out["pods_bound"] > 0 and out["fallback_cycles"] == 0, (extra, out)
+        assert out["pods_bound"] + out["pods_unschedulable"] == 24, (extra, out)
 
 
-def test_torch_shipped_manifest_host_options_parse():
+def test_torch_shipped_manifest_host_options_parse(monkeypatch):
     """The deploy manifest's host ConfigMap parses with the port's config,
     its host args parse with the port's CLI, and its sidecar args (a
-    4-device mesh) parse too but are refused: the mesh-sharded engine is
-    ROADMAP queue A item 10. RBAC grants what the kube layer needs.
+    4-device mesh, the auction, kernel K1 per shard) build the sharded
+    sidecar (on four CPU shards here). RBAC grants what the kube layer
+    needs.
 
     The manifest's host args end in `-v`, a flag of the top-level parser
     that neither package's CLI takes after the subcommand; it is moved in
@@ -153,7 +163,23 @@ def test_torch_shipped_manifest_host_options_parse():
     assert (args.cmd, args.source, args.lease_kube) == ("scheduler", "kube", True)
     sargs = parser.parse_args(sidecar)
     assert sargs.mesh_devices == 4
-    assert main([*sidecar, *CPU]) == 2
+    from kubernetes_scheduler_tpu_torch.bridge import server as server_mod
+
+    built = {}
+
+    def serve(server, port, service, args):
+        built["service"] = service
+        server.stop(None)
+        return 0
+
+    monkeypatch.setattr(server_mod, "serve", serve)
+    assert main([*sidecar, "--port=0", *CPU]) == 0
+    service = built["service"]
+    assert service.mesh_devices == 4 and type(service._engine).__name__ == "ShardedEngine"
+    assert service._pinned == {
+        "policy": "balanced_cpu_diskio", "assigner": "auction", "normalizer": "none",
+        "fused": True, "score_plugins": None, "auction_rounds": 1024,
+        "auction_price_frac": 1.0}
     role = next(d for d in docs if d.get("kind") == "ClusterRole")
     verbs: dict[tuple, set] = {}
     for rule in role["rules"]:

@@ -38,7 +38,7 @@ def test_torch_port_sources_never_import_jax_or_reference():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax"), (path, mod)
             assert top != "kubernetes_scheduler_tpu", (path, mod)
 
 
@@ -103,9 +103,10 @@ def test_torch_port_runs_a_host_cycle_with_jax_blocked():
 
 
 def test_torch_host_default_engine_wants_cuda(tmp_path):
-    """Scheduler without an engine runs on cuda and raises without it;
-    the options whose modules are not ported raise naming their ROADMAP
-    item, and trace_path / span_path (ported) open their recorders."""
+    """Scheduler without an engine runs on cuda and raises without it,
+    with policy="learned" (a LearnedEngine) and sharded_engine (a
+    ShardedEngine) too; the learned policy refuses a heuristic engine;
+    trace_path / span_path open their recorders."""
     from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler
     from kubernetes_scheduler_tpu_torch.sim import gen_host_cluster
     from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
@@ -117,10 +118,13 @@ def test_torch_host_default_engine_wants_cuda(tmp_path):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         Scheduler(SchedulerConfig(), **kw)
-    for opts, item in (({"policy": "learned"}, "item 9"),
-                       ({"sharded_engine": True}, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            Scheduler(SchedulerConfig(**opts), engine=TorchEngine(device="cpu"), **kw)
+    for opts in ({"policy": "learned"}, {"sharded_engine": True}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Scheduler(SchedulerConfig(**opts), **kw)
+    with pytest.raises(ValueError, match="requires a LearnedEngine"):
+        Scheduler(SchedulerConfig(policy="learned"), engine=TorchEngine(device="cpu"), **kw)
+    with pytest.raises(ValueError, match="no learned-policy path"):
+        Scheduler(SchedulerConfig(policy="learned", sharded_engine=True), **kw)
     sched = Scheduler(
         SchedulerConfig(trace_path=str(tmp_path / "t"), span_path=str(tmp_path / "s")),
         engine=TorchEngine(device="cpu"), **kw,
@@ -326,6 +330,86 @@ def test_torch_server_and_command_default_to_cuda():
         lambda: cli.main(["scheduler", "--nodes", "4", "--pods", "4"]),
         lambda: cli.main(["scheduler", "--engine", "local", "--nodes", "4", "--pods", "4"]),
         lambda: cli.main(["sidecar", "--port", "0"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_torch_two_tower_and_mesh_run_with_jax_blocked(tmp_path):
+    """models.learned, parallel/ and their routes import and run where jax
+    and the JAX package cannot: a checkpoint round trip, the Scheduler
+    with policy="learned" and with sharded_engine on the CPU, and a server
+    built with four CPU shards answering the port's RemoteEngine."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_scheduler_tpu'] = None\n"
+        "from kubernetes_scheduler_tpu_torch.models.learned import ("
+        "LearnedEngine, init_train_state, load_learned_engine, save_checkpoint)\n"
+        "from kubernetes_scheduler_tpu_torch.parallel import ShardedEngine, make_mesh\n"
+        "from kubernetes_scheduler_tpu_torch.bridge import RemoteEngine, make_server\n"
+        "from kubernetes_scheduler_tpu_torch.models.learned import sharded_learned_score_fn\n"
+        "from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler\n"
+        "from kubernetes_scheduler_tpu_torch.sim import (gen_cluster, gen_pods,"
+        " gen_host_cluster, gen_host_pods)\n"
+        "from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig\n"
+        "state, model, tx = init_train_state(0, device='cpu')\n"
+        f"save_checkpoint({str(tmp_path / 'ckpt')!r}, state)\n"
+        f"learned = load_learned_engine({str(tmp_path / 'ckpt')!r}, device='cpu')\n"
+        "mesh = make_mesh(4, device='cpu')\n"
+        "bound = []\n"
+        "pin = dict(batch_window=16, adaptive_dispatch=False, min_device_work=1)\n"
+        "for cfg, eng in ((SchedulerConfig(policy='learned', **pin), learned),"
+        " (SchedulerConfig(sharded_engine=True, **pin), ShardedEngine(mesh))):\n"
+        "    nodes, advisor = gen_host_cluster(32, seed=0)\n"
+        "    sched = Scheduler(cfg, advisor=advisor,"
+        " list_nodes=lambda: nodes, list_running_pods=lambda: [], engine=eng)\n"
+        "    for pod in gen_host_pods(16, seed=1):\n"
+        "        sched.submit(pod)\n"
+        "    m = sched.run_cycle()\n"
+        "    assert m.pods_bound > 0 and not m.used_fallback, m\n"
+        "    bound.append(m.pods_bound)\n"
+        "server, port, service = make_server('127.0.0.1:0', engine_override=ShardedEngine("
+        "mesh, score_fn=sharded_learned_score_fn(learned.params, mesh, model=learned.model)))\n"
+        "server.start()\n"
+        "client = RemoteEngine(f'127.0.0.1:{port}', deadline_seconds=60.0)\n"
+        "res = client.schedule_batch(gen_cluster(32, seed=1, device='cpu'),"
+        " gen_pods(8, seed=2, device='cpu'), policy='learned', assigner='auction')\n"
+        "assert int(res.n_assigned) > 0\n"
+        "client.close()\n"
+        "server.stop(None)\n"
+        "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v]\n"
+        "print('ok', bound, int(res.n_assigned))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_torch_two_tower_and_mesh_default_to_cuda():
+    """The learned scorer's and the mesh's entry points run on cuda by
+    default and raise without it; none falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a process without CUDA")
+    from kubernetes_scheduler_tpu_torch.host.scheduler import default_engine
+    from kubernetes_scheduler_tpu_torch.models.learned import LearnedEngine, init_train_state
+    from kubernetes_scheduler_tpu_torch.parallel import ShardedEngine, make_mesh
+    from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
+
+    params = init_train_state(0, device="cpu")[0].params
+    calls = [
+        lambda: init_train_state(0),
+        lambda: LearnedEngine(params),
+        lambda: make_mesh(2),
+        lambda: make_mesh(2, device="cuda"),
+        lambda: ShardedEngine(),
+        lambda: default_engine(SchedulerConfig(policy="learned")),
+        lambda: default_engine(SchedulerConfig(sharded_engine=True)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
