@@ -150,10 +150,17 @@ Phases; the first failure exits non-zero and no result line is printed:
    with bytes per shard, the learned scorer on the mesh, the Scheduler
    with sharded_engine on a host-10k backlog and a 4-shard sidecar, each
    bitwise the dense engine's; ms beside the dense call's;
-22. the kernels line (with the launches of phases 12-21), then the
+22. the (dcn, node) mesh of a slice spanning hosts on one card
+   (run_mesh_2d): make_mesh_multihost(2, 2) with node_axes (dcn, node),
+   the fused auction and greedy backlogs bitwise the dense engine and
+   phase 21's 1-D mesh (K1 once per shard per window, counted), resident
+   delta cycles, the learned scorer, the sidecar with --mesh-hosts 2; the
+   learned scorer's dp x node training step against the dense step (loss,
+   parameters, ms, peak memory);
+23. the kernels line (with the launches of phases 12-22), then the
    result line.
 
-Phases 7-21 print their seconds. Timed runs are medians of 3; equality
+Phases 7-22 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, grpc and protobuf, and nothing of JAX.
@@ -167,6 +174,14 @@ tree's on every K1, K2 and K4 case of phase 3, in turns (parent, this
 tree, this tree, parent): `parent_ms`. Each line says whether the parent
 equalled the plain version (`parent_bitwise`; e09185f's K2 drops a NaN,
 and up to commit 86ed4fd K4 never takes a NaN cell).
+
+    python3 chip_smoke.py --mesh-cards
+
+needs MESH_SHARDS (4) cards: it builds the kernels and runs phases 20-22
+alone, each mesh over the first four cards in place of cuda:0 repeated
+(make_mesh(4), make_mesh_multihost(2, 2), the dp x node grid over
+cuda:0-3, the sidecars' --device cuda), so every copy between shards
+crosses cards; the same checks hold. Its last line is the result line.
 """
 
 from __future__ import annotations
@@ -3091,6 +3106,19 @@ MESH_SHARDS = 4
 # H100 at 700 W), cut from N_WINDOWS so every case runs warm and 3 times
 MESH_GREEDY_WINDOWS = 2
 MESH_RESIDENT_CYCLES = 8
+# phase 22: MESH_SHARDS shards in MESH2D_HOSTS host groups of one card; the
+# dp x node training step's grid
+MESH2D_HOSTS = 2
+MESH2D_RESIDENT_CYCLES = 2
+TRAIN_GRID = (2, 2)
+TRAIN_TIMED_STEPS = 20
+TRAIN_STEPS_CHECKED = 5
+# |dp x node step - dense step|: the loss relative, each parameter
+# absolute after 1 and 5 AdamW steps. Read on an H100 (700 W): losses
+# within 9.1e-8, parameters within 1.64e-6 (the CPU at full width, 256
+# pods x 2,000 nodes: equal losses, 4.0e-7)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 1e-5
 MESH_CASES = {
     "k1_auction": dict(assigner="auction", normalizer="none", fused=True),
     "k1_greedy": dict(assigner="greedy", normalizer="none", fused=True),
@@ -3304,9 +3332,10 @@ def warm_pair(torch, what, run, run_dense) -> dict:
             "dense_ms": statistics.median(dense_runs), "dense_ms_runs": dense_runs}
 
 
-def mesh_delta_cycles(torch, port, se, dense, snap, window, kw, rng) -> dict:
+def mesh_delta_cycles(torch, port, se, dense, snap, window, kw, rng,
+                      n_cycles: int = MESH_RESIDENT_CYCLES) -> dict:
     """Phase 12's resident delta cycles on the mesh: one full upload, then
-    MESH_RESIDENT_CYCLES delta cycles (next_host_snapshot, snapshot_delta_np),
+    `n_cycles` delta cycles (next_host_snapshot, snapshot_delta_np),
     each bitwise the dense engine's schedule_batch of the same host build;
     per delta cycle the routed bytes per shard, the host-to-device bytes
     and wall ms, and K1-K4 launches."""
@@ -3316,7 +3345,7 @@ def mesh_delta_cycles(torch, port, se, dense, snap, window, kw, rng) -> dict:
     if se.resident_used_delta:
         fail("mesh resident: the first cycle did not upload in full")
     rows = []
-    for epoch in range(2, 2 + MESH_RESIDENT_CYCLES):
+    for epoch in range(2, 2 + n_cycles):
         new, _ = next_host_snapshot(host, res.free_after, rng)
         delta = snapshot_delta_np(port, host, new)
         torch.cuda.synchronize()
@@ -3338,7 +3367,55 @@ def mesh_delta_cycles(torch, port, se, dense, snap, window, kw, rng) -> dict:
     return {"cycles": rows}
 
 
-def run_mesh(torch, port, snap, pods, learned_engine):
+def mesh_sidecar(torch, port, snap, pods_w, dense, phase: str, axes: tuple, mesh_argv,
+                 spread: bool) -> dict:
+    """The in-process sidecar built by the server's command line with
+    `mesh_argv` and the fused auction (--assigner auction --normalizer
+    none --fused) on the card: it must serve a ShardedEngine of
+    MESH_SHARDS shards over a mesh with axes `axes`, and its backlog reply
+    must be bitwise the in-process dense call, with K1 MESH_SHARDS times a
+    window and no other kernel. Its --device is the card of `snap`, or
+    with `spread` "cuda" (the mesh over the first cards). Prints RPC and
+    in-process ms; returns the reply's launches."""
+    P, srv = port["parallel"], port["server"]
+    device = "cuda" if spread else str(snap.allocatable.device)
+    args = srv.build_parser().parse_args(
+        ["--host", "127.0.0.1", "--port", "0", "--device", device, *mesh_argv,
+         "--assigner", "auction", "--normalizer", "none", "--fused"])
+    server, port_no, service = srv.server_from_args(args)
+    engine = service._engine
+    if (not isinstance(engine, P.ShardedEngine) or service.mesh_devices != MESH_SHARDS
+            or engine.mesh.axis_names != axes):
+        fail(f"{phase}: the server serves {type(engine).__name__} "
+             f"({service.mesh_devices} shards)")
+    server.start()
+    client = port["RemoteEngine"](f"127.0.0.1:{port_no}", deadline_seconds=600.0)
+    try:
+        host0 = type(snap)(*[t.cpu().numpy() for t in snap])
+        host_w = type(pods_w)(*[f.cpu().numpy() for f in pods_w])
+        kw = MESH_CASES["k1_auction"]
+        call = lambda: client.schedule_windows(host0, host_w, **kw)  # noqa: E731
+        inproc = lambda: dense.schedule_windows(  # noqa: E731
+            snap, pods_w, affinity_aware=False, **kw)
+        reply, ln = counted(torch, port, call)
+        expect_launches(f"{phase} backlog", ln, {
+            "masked_score": N_WINDOWS * MESH_SHARDS, "row_stats": 0, "auction_bid": 0,
+            "greedy_scan": 0})
+        check_bridge_equal(f"{phase} backlog", reply, inproc())
+        timing = rpc_timing(torch, port, client, call, inproc)
+        if 'sharded_cycles_total{rpc="schedule_windows"}' not in service.render_metrics():
+            fail(f"{phase}: sharded_cycles_total did not count the backlog")
+        emit({"phase": phase, "shards": MESH_SHARDS, "mesh_shape": list(engine.mesh.shape),
+              "bitwise_dense": True, "launches": ln,
+              **{k: v for k, v in timing.items()
+                 if k in ("rpc_ms", "inprocess_ms", "engine_seconds")}})
+    finally:
+        client.close()
+        server.stop(grace=None)
+    return ln
+
+
+def run_mesh(torch, port, snap, pods, learned_engine, spread: bool = False):
     """Phase 21: the node-sharded engine on one card, gpu-10kx10k, meshes of
     cuda:0 four times and once (make_mesh(n, device=cuda:0)). Per mesh, the
     8 x 1,024-pod backlog through ShardedEngine on the fused path
@@ -3357,16 +3434,20 @@ def run_mesh(torch, port, snap, pods, learned_engine):
     TorchEngine(); the in-process sidecar built by the server's command
     line with the shipped manifest's options (--mesh-devices 4 on cuda:0,
     the fused auction), its backlog reply bitwise the in-process dense
-    call. Prints each call's ms beside the dense call's. Returns the
-    launches by run."""
+    call. Prints each call's ms beside the dense call's. Returns (the
+    launches by run, the 4-shard fused backlogs' outputs, dense outputs
+    and medians for phase 22). With `spread` the 4-shard mesh is
+    make_mesh(4), one shard a card, and the Scheduler's default mesh has
+    every card."""
     P, L = port["parallel"], port["learned"]
     t0 = time.perf_counter()
     dev = snap.allocatable.device
     dense = port["TorchEngine"]()
-    meshes = {MESH_SHARDS: P.make_mesh(MESH_SHARDS, device=dev), 1: P.make_mesh(1, device=dev)}
+    meshes = {MESH_SHARDS: P.make_mesh(MESH_SHARDS, device=None if spread else dev),
+              1: P.make_mesh(1, device=dev)}
     window = type(pods)(*[f[:WINDOW] for f in pods])
     n_nodes = snap.allocatable.shape[0]
-    launches = {}
+    launches, flat = {}, {}
     for shards, mesh in meshes.items():
         se = P.ShardedEngine(mesh)
         for name, kw in MESH_CASES.items():
@@ -3389,6 +3470,9 @@ def run_mesh(torch, port, snap, pods, learned_engine):
             check_backlog(torch, f"mesh {shards} {name}", got, n_windows, n_nodes, 0.5)
             launches[f"{shards}_{name}"] = ln
             runs, _ = wall_ms(torch, run)
+            if shards == MESH_SHARDS and kw.get("fused"):
+                flat[name] = {"out": got, "dense": want, "ms": statistics.median(runs),
+                              "dense_ms": statistics.median(dense_runs)}
             emit({"phase": f"mesh{shards}_{name}_schedule_windows", "config": "gpu-10kx10k",
                   "shards": shards, "windows": n_windows, "window": WINDOW,
                   "ms": statistics.median(runs), "ms_runs": runs,
@@ -3457,40 +3541,174 @@ def run_mesh(torch, port, snap, pods, learned_engine):
           "dense_cycle_ms": cycle_ms["dense"], "bindings_equal_dense": True})
 
     # the sidecar as the shipped manifest's --mesh-devices 4 builds it
-    srv = port["server"]
-    args = srv.build_parser().parse_args(
-        ["--host", "127.0.0.1", "--port", "0", "--device", str(dev),
-         "--mesh-devices", str(MESH_SHARDS), "--assigner", "auction", "--normalizer", "none",
-         "--fused"])
-    server, port_no, service = srv.server_from_args(args)
-    if not isinstance(service._engine, P.ShardedEngine) or service.mesh_devices != MESH_SHARDS:
-        fail(f"mesh sidecar: the server serves {type(service._engine).__name__}")
-    server.start()
-    client = port["RemoteEngine"](f"127.0.0.1:{port_no}", deadline_seconds=600.0)
-    try:
-        host0 = type(snap)(*[t.cpu().numpy() for t in snap])
-        host_w = type(pods_w)(*[f.cpu().numpy() for f in pods_w])
-        kw = MESH_CASES["k1_auction"]
-        call = lambda: client.schedule_windows(host0, host_w, **kw)  # noqa: E731
-        inproc = lambda: dense.schedule_windows(  # noqa: E731
-            snap, pods_w, affinity_aware=False, **kw)
-        reply, ln = counted(torch, port, call)
-        expect_launches("mesh sidecar backlog", ln, {
-            "masked_score": N_WINDOWS * MESH_SHARDS, "row_stats": 0, "auction_bid": 0,
-            "greedy_scan": 0})
-        check_bridge_equal("mesh sidecar backlog", reply, inproc())
-        launches["sidecar_backlog"] = ln
-        timing = rpc_timing(torch, port, client, call, inproc)
-        if 'sharded_cycles_total{rpc="schedule_windows"}' not in service.render_metrics():
-            fail("mesh sidecar: sharded_cycles_total did not count the backlog")
-        emit({"phase": "mesh_sidecar", "shards": MESH_SHARDS, "bitwise_dense": True,
-              "launches": ln, **{k: v for k, v in timing.items()
-                                 if k in ("rpc_ms", "inprocess_ms", "engine_seconds")}})
-    finally:
-        client.close()
-        server.stop(grace=None)
+    launches["sidecar_backlog"] = mesh_sidecar(
+        torch, port, snap, pods_w, dense, "mesh_sidecar", (P.NODE_AXIS,),
+        ["--mesh-devices", str(MESH_SHARDS)], spread)
     emit({"phase": "mesh_seconds", "seconds": time.perf_counter() - t0})
+    return launches, flat
+
+
+def run_mesh_2d(torch, port, snap, pods, learned_engine, flat: dict, spread: bool = False):
+    """Phase 22: the (dcn, node) mesh of a slice spanning hosts on one card,
+    gpu-10kx10k: make_mesh_multihost(MESH2D_HOSTS, MESH_SHARDS //
+    MESH2D_HOSTS, device=cuda:0), ShardedEngine(node_axes=(dcn, node)).
+    The fused auction backlog (N_WINDOWS windows) and the fused greedy
+    backlog (MESH_GREEDY_WINDOWS), each bitwise the dense TorchEngine's and
+    phase 21's 1-D 4-shard mesh's (`flat`), K1 MESH_SHARDS times a window
+    and no other kernel (counted), warm, the median of 3 beside phase 21's
+    dense and 1-D medians; MESH2D_RESIDENT_CYCLES resident delta cycles
+    with bytes per shard; the learned auction window on the 2-D mesh
+    bitwise the dense LearnedEngine's; the in-process sidecar of
+    --mesh-devices 4 --mesh-hosts 2 (fused auction), its backlog reply
+    bitwise the in-process dense call. Then sharded_train_step at
+    NodeScorer()'s widths on a ("dp", "node") TRAIN_GRID mesh of the card
+    against train_step from the same seeded state on phase 20's problem
+    (one 1,024-pod window x 10,000 nodes): the loss within
+    TRAIN_LOSS_RTOL, every parameter within TRAIN_PARAM_TOL after 1 and
+    TRAIN_STEPS_CHECKED steps; both steps' ms (CUDA events, median of
+    TRAIN_TIMED_STEPS) and peak device memory. With `spread` the meshes
+    are make_mesh_multihost(MESH2D_HOSTS, MESH_SHARDS // MESH2D_HOSTS) and
+    the training grid over the first cards, one shard a card. Returns the
+    launches by run."""
+    P, L = port["parallel"], port["learned"]
+    t0 = time.perf_counter()
+    dev = snap.allocatable.device
+    axes = (P.DCN_AXIS, P.NODE_AXIS)
+    mesh = P.make_mesh_multihost(MESH2D_HOSTS, MESH_SHARDS // MESH2D_HOSTS,
+                                 device=None if spread else dev)
+    se = P.ShardedEngine(mesh, node_axes=axes)
+    if se.n_shards != MESH_SHARDS or mesh.axis_names != axes:
+        fail(f"mesh-2d: {se.n_shards} shards over {mesh.axis_names}")
+    dense = port["TorchEngine"]()
+    window = type(pods)(*[f[:WINDOW] for f in pods])
+    n_nodes = snap.allocatable.shape[0]
+    launches = {}
+    for name in ("k1_auction", "k1_greedy"):
+        kw = MESH_CASES[name]
+        n_windows = MESH_GREEDY_WINDOWS if kw["assigner"] == "greedy" else N_WINDOWS
+        _, pods_w = backlog_windows(port, pods, n_windows)
+        run = lambda: se.schedule_windows(snap, pods_w, **kw)  # noqa: E731
+        got, ln = counted(torch, port, run)
+        expect_launches(f"mesh-2d {name}", ln, {
+            "masked_score": n_windows * MESH_SHARDS, "row_stats": 0, "auction_bid": 0,
+            "greedy_scan": 0})
+        check_equal(torch, f"mesh-2d {name} (vs dense)", got, flat[name]["dense"])
+        check_equal(torch, f"mesh-2d {name} (vs the 1-D mesh)", got, flat[name]["out"])
+        check_backlog(torch, f"mesh-2d {name}", got, n_windows, n_nodes, 0.5)
+        launches[name] = ln
+        runs, _ = wall_ms(torch, run)
+        emit({"phase": f"mesh2d_{name}_schedule_windows", "config": "gpu-10kx10k",
+              "mesh_shape": list(mesh.shape), "shards": MESH_SHARDS, "windows": n_windows,
+              "window": WINDOW, "ms": statistics.median(runs), "ms_runs": runs,
+              "flat_ms": flat[name]["ms"], "dense_ms": flat[name]["dense_ms"],
+              "n_assigned": int(got.n_assigned), "launches": ln,
+              "bitwise_dense": True, "bitwise_flat": True})
+
+    kw = MESH_CASES["k1_auction"]
+    resident = mesh_delta_cycles(torch, port, se, dense, snap, window, kw,
+                                 np.random.default_rng(22), MESH2D_RESIDENT_CYCLES)
+    for i, row in enumerate(resident["cycles"]):
+        expect_launches(f"mesh-2d resident delta cycle {i}", row["launches"], {
+            "masked_score": MESH_SHARDS, "row_stats": 0, "auction_bid": 0, "greedy_scan": 0})
+    launches["resident"] = {k: sum(r["launches"][k] for r in resident["cycles"])
+                            for k in port["fused"].launches}
+    emit({"phase": "mesh2d_resident", "config": "gpu-10kx10k",
+          "mesh_shape": list(mesh.shape), **resident})
+
+    kw = dict(assigner="auction", normalizer="min_max")
+    fn = L.make_sharded_learned_fn(learned_engine.params, mesh, model=learned_engine.model,
+                                   node_axes=axes, **kw)
+    row = warm_pair(torch, "mesh-2d learned auction window", lambda: fn(snap, window),
+                    lambda: learned_engine.schedule_batch(snap, window, affinity_aware=False,
+                                                          **kw))
+    emit({"phase": "mesh2d_learned", "mesh_shape": list(mesh.shape), "bitwise_dense": True,
+          "auction_window": row})
+
+    _, pods_w = backlog_windows(port, pods)
+    launches["sidecar_backlog"] = mesh_sidecar(
+        torch, port, snap, pods_w, dense, "mesh2d_sidecar", axes,
+        ["--mesh-devices", str(MESH_SHARDS), "--mesh-hosts", str(MESH2D_HOSTS)], spread)
+
+    emit({"phase": "mesh2d_train", **mesh_train_step(torch, port, snap, window, spread)})
+    emit({"phase": "mesh2d_seconds", "seconds": time.perf_counter() - t0})
     return launches
+
+
+def mesh_train_step(torch, port, snap, window, spread: bool) -> dict:
+    """sharded_train_step on a (dp, node) TRAIN_GRID mesh of the card (with
+    `spread`, of the first cards) against train_step, two states from one
+    seed (phase 22). The mesh step's peak memory is summed over the grid's
+    cards."""
+    P, L = port["parallel"], port["learned"]
+    check_no_tf32(torch, "mesh-2d train step")
+    dev = snap.allocatable.device
+    n = TRAIN_GRID[0] * TRAIN_GRID[1]
+    devices = [torch.device("cuda", k) for k in range(n)] if spread else [dev] * n
+    grid = P.Mesh(devices, TRAIN_GRID, (P.DP_AXIS, P.NODE_AXIS))
+    cards = sorted(set(devices), key=str)
+    (d_state, d_model, d_tx), (m_state, m_model, m_tx) = (L.init_train_state(0),
+                                                          L.init_train_state(0))
+    n_params = sum(t.numel() for t in d_state.params.values())
+    if n_params != 201_481:
+        fail(f"mesh-2d train step: NodeScorer() has {n_params} parameters")
+    pod_x, node_x = L.make_features(snap, window)
+    teacher = port["compute_scores"](snap, window, "balanced_cpu_diskio")
+    args = (pod_x, node_x, teacher, snap.node_mask, window.pod_mask)
+    state = {"dense": d_state, "mesh": m_state}
+
+    def dense_step():
+        state["dense"], loss = L.train_step(state["dense"], d_model, d_tx, *args)
+        return loss
+
+    def mesh_step():
+        state["mesh"], loss = L.sharded_train_step(state["mesh"], m_model, m_tx, grid, *args)
+        return loss
+
+    loss_err, param_err = [], {}
+    for i in range(1, TRAIN_STEPS_CHECKED + 1):
+        want, got = float(dense_step()), float(mesh_step())
+        loss_err.append(abs(got - want) / abs(want))
+        if not np.isfinite(got) or loss_err[-1] > TRAIN_LOSS_RTOL:
+            fail(f"mesh-2d train step {i}: loss {got} against the dense {want}")
+        if i in (1, TRAIN_STEPS_CHECKED):
+            param_err[i] = max(max_abs_err(state["mesh"].params[k].detach(), t.detach())
+                               for k, t in state["dense"].params.items())
+            if not param_err[i] <= TRAIN_PARAM_TOL:
+                fail(f"mesh-2d train step {i}: parameters differ by {param_err[i]}")
+    if state["mesh"].step != TRAIN_STEPS_CHECKED:
+        fail(f"mesh-2d train step: the state counts {state['mesh'].step} steps")
+    out = {"config": "gpu-10kx10k", "pods": WINDOW, "nodes": snap.allocatable.shape[0],
+           "grid": list(TRAIN_GRID), "cards": len(cards), "params": n_params,
+           "loss_rel_err": loss_err, "param_max_abs_err": param_err}
+    for name, step, on in (("dense", dense_step, [dev]), ("mesh", mesh_step, cards)):
+        out[f"{name}_step_ms"] = cuda_ms(torch, step, n=TRAIN_TIMED_STEPS, warmup=1)
+        for c in on:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+        base = sum(torch.cuda.memory_allocated(c) for c in on)
+        step()
+        for c in on:
+            torch.cuda.synchronize(c)
+        peak = sum(torch.cuda.max_memory_allocated(c) for c in on)
+        out[f"{name}_peak_bytes"] = peak
+        out[f"{name}_step_peak_bytes"] = peak - base
+    return out
+
+
+def run_mesh_cards(torch, port, snap, pods) -> None:
+    """Phases 20-22 alone (--mesh-cards), each mesh over the first
+    MESH_SHARDS cards."""
+    if torch.cuda.device_count() < MESH_SHARDS:
+        fail(f"--mesh-cards needs {MESH_SHARDS} cards, {torch.cuda.device_count()} visible")
+    work = Path(__file__).resolve().parent / SMOKE_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        _, learned_engine = run_learned(torch, port, snap, pods, work)
+        _, flat = run_mesh(torch, port, snap, pods, learned_engine, spread=True)
+        run_mesh_2d(torch, port, snap, pods, learned_engine, flat, spread=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def load_port() -> dict:
@@ -3598,6 +3816,9 @@ def main() -> None:
     ap.add_argument("--parent-tree", default=None,
                     help="a checkout of an earlier commit (e09185f or later): time its "
                          "K1, K2 and K4 beside this tree's")
+    ap.add_argument("--mesh-cards", action="store_true",
+                    help="run phases 20-22 alone with each mesh over the first "
+                         f"{MESH_SHARDS} cards")
     args = ap.parse_args()
     try:
         import torch
@@ -3638,6 +3859,10 @@ def main() -> None:
 
     # ---- 3. kernels against their plain versions ------------------------
     snap, pods = gen_config("gpu-10kx10k", seed=0, device=dev)
+    if args.mesh_cards:
+        run_mesh_cards(torch, port, snap, pods)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return
     window = type(pods)(*[f[:WINDOW] for f in pods])
     sel_snap = gen_cluster(10_000, seed=0, constraints=True, device=dev)
     sel_pods = gen_pods(WINDOW, seed=1, constraints=True, device=dev)
@@ -3729,13 +3954,16 @@ def main() -> None:
         learned_launches, learned_engine = run_learned(torch, port, snap, pods, work)
 
         # ---- 21. the node-sharded engine on one card ------------------------
-        mesh_launches = run_mesh(torch, port, snap, pods, learned_engine)
+        mesh_launches, flat = run_mesh(torch, port, snap, pods, learned_engine)
+
+        # ---- 22. the (dcn, node) mesh and the dp x node training step -------
+        mesh2d_launches = run_mesh_2d(torch, port, snap, pods, learned_engine, flat)
     finally:
         if server is not None:
             server.stop(grace=None)
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 22. the kernels line and the result ----------------------------
+    # ---- 23. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -3762,6 +3990,7 @@ def main() -> None:
             "live_cluster_launches": launches_of(live_launches, name),
             "learned_launches": launches_of(learned_launches, name),
             "mesh_launches": launches_of(mesh_launches, name),
+            "mesh_2d_launches": launches_of(mesh2d_launches, name),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -10,35 +10,25 @@ Entry points run on the CUDA card unless the caller passes
 `device="cpu"`; they never fall back to the CPU on their own.
 """
 
-# the exports resolve lazily: importing them pulls in torch, which the
-# journal and span tools (trace.inspect, .spans, .analyze, .trend) must
-# not need just for the package import
+from kubernetes_scheduler_tpu_torch._exports import lazy_getattr, names_in
+
+__version__ = "0.1.0"
+
 _EXPORTS = {
-    "resolve_device": "kubernetes_scheduler_tpu_torch.device",
-    **{
-        name: "kubernetes_scheduler_tpu_torch.engine"
-        for name in (
-            "PodBatch",
-            "ScheduleResult",
-            "SnapshotArrays",
-            "TorchEngine",
-            "WindowsResult",
-            "make_pod_batch",
-            "make_snapshot",
-            "schedule_batch",
-            "schedule_windows",
-            "stack_windows",
-        )
-    },
+    **names_in("kubernetes_scheduler_tpu_torch.device", "resolve_device"),
+    **names_in(
+        "kubernetes_scheduler_tpu_torch.engine",
+        "PodBatch",
+        "ScheduleResult",
+        "SnapshotArrays",
+        "TorchEngine",
+        "WindowsResult",
+        "make_pod_batch",
+        "make_snapshot",
+        "schedule_batch",
+        "schedule_windows",
+        "stack_windows",
+    ),
 }
-
 __all__ = sorted(_EXPORTS)
-
-
-def __getattr__(name):
-    module = _EXPORTS.get(name)
-    if module is None:
-        raise AttributeError(name)
-    import importlib
-
-    return getattr(importlib.import_module(module), name)
+__getattr__ = lazy_getattr(_EXPORTS)

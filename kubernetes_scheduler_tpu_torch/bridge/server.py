@@ -12,7 +12,8 @@ it raises without CUDA), every reply reads its result with one
 device.to_host, and on-demand profiles run under torch.profiler.
 --learned-checkpoint serves a LearnedEngine on `device`; --mesh-devices
 N > 1 serves parallel.engine.ShardedEngine (scored by the learned towers
-with a checkpoint), its options fixed at startup.
+with a checkpoint), its options fixed at startup; with --mesh-hosts H > 1
+over a (dcn, node) mesh of H host groups.
 
 Run:  python -m kubernetes_scheduler_tpu_torch.bridge.server --port 50051
 """
@@ -44,12 +45,6 @@ _DECISION_FIELDS = ("node_idx", "free_after", "n_assigned")
 # One deep-backlog session is ~a few MB; 8 sessions bound the sidecar's
 # exposure to clients that churn session ids.
 _MAX_CACHE_SESSIONS = 8
-
-MULTIHOST_NOT_PORTED = (
-    "--mesh-hosts > 1 (a mesh across hosts) is not ported to the PyTorch "
-    "package yet: ROADMAP queue A, item 10b (make_mesh_multihost)"
-)
-
 
 def _auction_kw(request: pb.ScheduleRequest) -> dict:
     """Auction knobs from the wire; proto3 zero means "engine default"."""
@@ -778,7 +773,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--mesh-hosts", type=int, default=1,
         help="with --mesh-devices: split the mesh into this many host "
-        "groups (> 1 is not ported yet, ROADMAP queue A item 10b)",
+        "groups, a (dcn, node) mesh whose collectives run within each "
+        "group first (--mesh-devices must divide by it)",
     )
     parser.add_argument("--policy", default="balanced_cpu_diskio")
     parser.add_argument(
@@ -855,8 +851,9 @@ def server_from_args(args) -> tuple[grpc.Server, int, EngineService]:
     --learned-checkpoint on --device, and with --mesh-devices N > 1 a
     ShardedEngine over N shards (the first N cards for --device cuda,
     else that one device N times; the learned towers score each shard
-    with a checkpoint) with the mesh options pinned. Raises SystemExit
-    for conflicting options and NotImplementedError for --mesh-hosts > 1."""
+    with a checkpoint) with the mesh options pinned; --mesh-hosts H > 1
+    makes it make_mesh_multihost(H, N // H) with the node axis over
+    (dcn, node). Raises SystemExit for conflicting options."""
     engine_override = None
     policy = args.policy
     if args.learned_checkpoint:
@@ -897,14 +894,24 @@ def server_from_args(args) -> tuple[grpc.Server, int, EngineService]:
     pinned = None
     if args.mesh_devices > 1:
         from kubernetes_scheduler_tpu_torch.parallel.engine import ShardedEngine, check_options
-        from kubernetes_scheduler_tpu_torch.parallel.mesh import make_mesh
+        from kubernetes_scheduler_tpu_torch.parallel.mesh import (
+            DCN_AXIS,
+            NODE_AXIS,
+            make_mesh,
+            make_mesh_multihost,
+        )
 
+        # --device cuda: the first cards; cpu or cuda:K: that device repeated
+        device = None if args.device is None or str(args.device) == "cuda" else args.device
         if args.mesh_hosts > 1:
-            raise NotImplementedError(MULTIHOST_NOT_PORTED)
-        if args.device is None or str(args.device) == "cuda":
-            mesh = make_mesh(args.mesh_devices)
+            if args.mesh_devices % args.mesh_hosts:
+                raise SystemExit("--mesh-devices must divide by --mesh-hosts")
+            mesh = make_mesh_multihost(args.mesh_hosts, args.mesh_devices // args.mesh_hosts,
+                                       device=device)
+            node_axes = (DCN_AXIS, NODE_AXIS)
         else:
-            mesh = make_mesh(args.mesh_devices, device=args.device)
+            mesh = make_mesh(args.mesh_devices, device=device)
+            node_axes = NODE_AXIS
         score_fn = None
         if engine_override is not None:
             from kubernetes_scheduler_tpu_torch.models.learned import sharded_learned_score_fn
@@ -920,7 +927,7 @@ def server_from_args(args) -> tuple[grpc.Server, int, EngineService]:
             raise SystemExit(f"--mesh-devices: {e}") from None
         pinned.update(auction_rounds=args.auction_rounds,
                       auction_price_frac=args.auction_price_frac)
-        engine_override = ShardedEngine(mesh, score_fn=score_fn)
+        engine_override = ShardedEngine(mesh, node_axes=node_axes, score_fn=score_fn)
     return make_server(
         f"{args.host}:{args.port}",
         device=args.device,
@@ -969,11 +976,7 @@ def serve(server, port: int, service: EngineService, args) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    try:
-        server, port, service = server_from_args(args)
-    except NotImplementedError as e:
-        log.error("%s", e)
-        return 2
+    server, port, service = server_from_args(args)
     return serve(server, port, service, args)
 
 

@@ -22,8 +22,8 @@ kubernetes_scheduler_tpu_torch`): every command that builds an engine
 builds TorchEngine(device=--device), cuda by default, which raises
 without CUDA; policy "learned" (`--learned-checkpoint`) builds the
 LearnedEngine and `sharded_engine` the ShardedEngine there instead
-(host.scheduler.default_engine), and `sidecar --mesh-devices N` serves
-the sharded programs. `bench` is not ported yet and exits 2 naming
+(host.scheduler.default_engine), and `sidecar --mesh-devices N
+[--mesh-hosts H]` serves the sharded programs. `bench` is not ported yet and exits 2 naming
 ROADMAP queue A item 11.
 """
 
@@ -533,6 +533,7 @@ def cmd_sidecar(args) -> int:
         # the mesh options configure the sharded engine's programs
         argv += [
             "--mesh-devices", str(args.mesh_devices),
+            "--mesh-hosts", str(args.mesh_hosts),
             "--assigner", args.assigner, "--normalizer", args.normalizer,
             "--auction-rounds", str(args.auction_rounds),
             "--auction-price-frac", str(args.auction_price_frac),
@@ -962,6 +963,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="shard the node axis over this many devices (0 = single "
         "device): with --device cuda the first N cards, with cpu or "
         "cuda:K that one device N times",
+    )
+    pc.add_argument(
+        "--mesh-hosts", type=int, default=1,
+        help="with --mesh-devices: split the mesh into this many host groups "
+        "(a (dcn, node) mesh; --mesh-devices must divide by it)",
     )
     pc.add_argument(
         "--learned-checkpoint", dest="learned_checkpoint", default=None,

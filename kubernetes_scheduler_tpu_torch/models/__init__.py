@@ -9,6 +9,7 @@ Two families:
   registry does not build the engine.
 """
 
+from kubernetes_scheduler_tpu_torch._exports import lazy_getattr, names_in
 from kubernetes_scheduler_tpu_torch.models.policy import (
     HEURISTIC_POLICIES,
     POLICY_REGISTRY,
@@ -16,7 +17,8 @@ from kubernetes_scheduler_tpu_torch.models.policy import (
     get_policy,
 )
 
-LEARNED_NAMES = (
+_EXPORTS = names_in(
+    "kubernetes_scheduler_tpu_torch.models.learned",
     "make_features",
     "Tower",
     "NodeScorer",
@@ -24,6 +26,7 @@ LEARNED_NAMES = (
     "init_train_state",
     "imitation_loss",
     "train_step",
+    "sharded_train_step",
     "save_checkpoint",
     "restore_checkpoint",
     "LearnedEngine",
@@ -31,14 +34,6 @@ LEARNED_NAMES = (
     "make_sharded_learned_fn",
     "sharded_learned_score_fn",
 )
-
 __all__ = ["HEURISTIC_POLICIES", "POLICY_REGISTRY", "PolicyInfo", "get_policy",
-           *LEARNED_NAMES]
-
-
-def __getattr__(name):
-    if name in LEARNED_NAMES:
-        from kubernetes_scheduler_tpu_torch.models import learned
-
-        return getattr(learned, name)
-    raise AttributeError(name)
+           *_EXPORTS]
+__getattr__ = lazy_getattr(_EXPORTS)

@@ -22,6 +22,11 @@ Layers carry the flax module names (`pod_tower.Dense_0..2`,
 one to one onto the state dict (convert.learned_from_reference).
 Checkpoints are the port's own format (torch.save of the params, the
 optimizer state and the step), not orbax.
+
+On a dp x node mesh (sharded_train_step) the pod axis is data-parallel
+over `dp` and the node axis shards over `node`, parameters replicated:
+the counterpart of the reference's train_step jitted over sharded
+inputs, with the collectives its GSPMD program inserts written out.
 """
 
 from __future__ import annotations
@@ -208,16 +213,31 @@ def imitation_loss(
     plus 0.01 x MSE on raw scores (the teacher is any heuristic policy's
     raw score matrix, engine.compute_scores)."""
     pred = torch.func.functional_call(model, params, (pod_x, node_x))     # [p, n]
-    mask2 = node_mask[None, :] & pod_mask[:, None]
-    neg = pred.new_full((), -1e30)
-    t_logp = torch.log_softmax(torch.where(mask2, teacher_scores, neg), dim=-1)
-    p_logp = torch.log_softmax(torch.where(mask2, pred, neg), dim=-1)
-    valid = torch.clamp(pod_mask.sum().to(pred.dtype), min=1.0)
-    kl = (torch.exp(t_logp) * (t_logp - p_logp) * mask2).sum() / valid
-    mse = (((pred - teacher_scores) ** 2) * mask2).sum() / torch.clamp(
-        mask2.sum().to(pred.dtype), min=1.0
+    return _blocked_loss(
+        [(pred, teacher_scores, node_mask, pod_mask)],
+        lambda zs: [torch.log_softmax(zs[0], dim=-1)], lambda xs: xs[0], pod_mask.sum(),
     )
-    return kl + 0.01 * mse
+
+
+def _blocked_loss(blocks, log_softmax, total, n_pods) -> torch.Tensor:
+    """imitation_loss over blocks of the [p, n] grid: `blocks` holds each
+    block's (pred, teacher, node_mask, pod_mask); `log_softmax(list)` is
+    the row-wise log_softmax of the blocks' masked logits across each
+    row's blocks, `total(list)` the sum of the blocks' partial sums (on
+    one device), `n_pods` the number of valid pods."""
+    masks, t_in, p_in = [], [], []
+    for pred, teacher, node_mask, pod_mask in blocks:
+        mask2 = node_mask[None, :] & pod_mask[:, None]
+        neg = pred.new_full((), -1e30)
+        masks.append(mask2)
+        t_in.append(torch.where(mask2, teacher, neg))
+        p_in.append(torch.where(mask2, pred, neg))
+    t_logp, p_logp = log_softmax(t_in), log_softmax(p_in)
+    kl = total([(torch.exp(t) * (t - q) * m).sum() for t, q, m in zip(t_logp, p_logp, masks)])
+    mse = total([(((b[0] - b[1]) ** 2) * m).sum() for b, m in zip(blocks, masks)])
+    cells = total([m.sum() for m in masks]).to(kl.dtype)
+    valid = torch.clamp(n_pods.to(kl.device, kl.dtype), min=1.0)
+    return kl / valid + 0.01 * (mse / torch.clamp(cells, min=1.0))
 
 
 def train_step(
@@ -236,6 +256,11 @@ def train_step(
     loss = imitation_loss(
         model, state.params, pod_x, node_x, teacher_scores, node_mask, pod_mask
     )
+    return _step(state, tx, loss)
+
+
+def _step(state: TrainState, tx: torch.optim.Optimizer, loss: torch.Tensor):
+    """Gradients of `loss` into state.params, then one step of `tx`."""
     tensors = list(state.params.values())
     grads = torch.autograd.grad(loss, tensors)
     for t, g in zip(tensors, grads):
@@ -243,6 +268,87 @@ def train_step(
     tx.step()
     tx.zero_grad(set_to_none=True)
     return TrainState(state.params, tx.state_dict(), state.step + 1), loss.detach()
+
+
+def sharded_imitation_loss(
+    model: NodeScorer,
+    params: dict,
+    mesh,
+    pod_x: torch.Tensor,
+    node_x: torch.Tensor,
+    teacher_scores: torch.Tensor,
+    node_mask: torch.Tensor,
+    pod_mask: torch.Tensor,
+) -> torch.Tensor:
+    """imitation_loss over a (DP_AXIS, NODE_AXIS) mesh (parallel.mesh.Mesh):
+    pods and pod_mask split over dp, nodes and node_mask over node, the
+    teacher over both. Block (i, j) runs on its shard's device with a
+    differentiable copy of `params` there (the tensors themselves on the
+    device they live on). What crosses blocks: each pod row's max over
+    node (pmax) and its sum of exponentials (psum) for the masked
+    log_softmax, and the loss's partial sums, reduced on the lead. No [p,
+    n] matrix is gathered. Returns the loss on the lead, differentiable
+    in `params`."""
+    from kubernetes_scheduler_tpu_torch.parallel.mesh import (
+        DP_AXIS,
+        NODE_AXIS,
+        pmax,
+        psum,
+        reduce_lead,
+    )
+
+    if mesh.axis_names != (DP_AXIS, NODE_AXIS):
+        raise ValueError(f"a training mesh has axes {(DP_AXIS, NODE_AXIS)}, not {mesh.axis_names}")
+    n_dp, n_node = mesh.shape
+    p, n = teacher_scores.shape
+    if p % n_dp or n % n_node:
+        raise ValueError(f"[{p}, {n}] does not split over the {mesh.shape} mesh")
+    pb, nb = p // n_dp, n // n_node
+    replicas = {}
+    blocks = []
+    for k, dev in enumerate(mesh.devices):
+        i, j = divmod(k, n_node)
+        if dev not in replicas:
+            replicas[dev] = {name: t.to(dev) for name, t in params.items()}
+        rows, cols = slice(i * pb, (i + 1) * pb), slice(j * nb, (j + 1) * nb)
+        pred = torch.func.functional_call(
+            model, replicas[dev], (pod_x[rows].to(dev), node_x[cols].to(dev)))
+        blocks.append((pred, teacher_scores[rows, cols].to(dev), node_mask[cols].to(dev),
+                       pod_mask[rows].to(dev)))
+
+    def log_softmax(zs):
+        # the max only shifts the exponent: no gradient flows through it
+        maxima = pmax([z.detach().amax(-1) for z in zs], mesh, axes=NODE_AXIS)
+        shifted = [z - m[:, None] for z, m in zip(zs, maxima)]
+        sums = psum([torch.exp(x).sum(-1) for x in shifted], mesh, axes=NODE_AXIS)
+        return [x - torch.log(s)[:, None] for x, s in zip(shifted, sums)]
+
+    return _blocked_loss(blocks, log_softmax, lambda xs: reduce_lead(torch.add, xs, mesh),
+                         pod_mask.sum())
+
+
+def sharded_train_step(
+    state: TrainState,
+    model: NodeScorer,
+    tx: torch.optim.Optimizer,
+    mesh,
+    pod_x: torch.Tensor,
+    node_x: torch.Tensor,
+    teacher_scores: torch.Tensor,
+    node_mask: torch.Tensor,
+    pod_mask: torch.Tensor,
+) -> tuple[TrainState, torch.Tensor]:
+    """train_step on a (DP_AXIS, NODE_AXIS) mesh, the counterpart of the
+    reference's train_step jitted over a ("dp", "node") mesh:
+    sharded_imitation_loss (every block's forward and backward on its
+    shard's device), the parameter gradients of every replica summed onto
+    the parameters on the lead (autograd carries them back through the
+    copies), where `tx` steps; the next step copies the new parameters
+    out again. state.params live on the mesh's lead device. Returns (the
+    new state, the loss before the step), as train_step."""
+    loss = sharded_imitation_loss(
+        model, state.params, mesh, pod_x, node_x, teacher_scores, node_mask, pod_mask)
+    return _step(state, tx, loss)
 
 
 def save_checkpoint(path: str, state: TrainState) -> None:
@@ -413,7 +519,7 @@ def sharded_learned_score_fn(params: dict, mesh, *, model: NodeScorer | None = N
     the node tower reads per-node features of the shard's own nodes, the
     pod tower is replicated, and the [p, n_local] product is per-shard
     work (the normalization bounds there are already global). One copy of
-    the parameters per mesh device."""
+    the parameters per mesh device, on a mesh of any shape."""
     model = model or NodeScorer()
     scorers = {}
     for dev in mesh.devices:
@@ -434,8 +540,8 @@ def make_sharded_learned_fn(params: dict, mesh, *, model: NodeScorer | None = No
                             windows: bool = False, **kw):
     """The learned two-tower policy on a mesh: the program of
     parallel.engine.make_sharded_schedule_fn (or make_sharded_windows_fn
-    when windows=True) with the factory's options `kw`, scored by
-    sharded_learned_score_fn."""
+    when windows=True) with the factory's options `kw` (node_axes among
+    them), scored by sharded_learned_score_fn."""
     from kubernetes_scheduler_tpu_torch.parallel.engine import (
         make_sharded_schedule_fn,
         make_sharded_windows_fn,

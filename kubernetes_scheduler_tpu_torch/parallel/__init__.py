@@ -6,7 +6,9 @@ pending-pod axis: nodes split into shards, pods stay replicated, and the
 per-cycle reductions (utilization statistics, score bounds, the global
 argmax of assignment) become collectives over the shards. The engine is
 single-controller: one process drives every shard, and a mesh may place
-several shards on one device.
+several shards on one device. make_mesh_multihost is the reference's
+mesh across hosts: a 2-D (dcn, node) grid of this process's devices, the
+node axis sharded over both in row-major order.
 """
 
 from kubernetes_scheduler_tpu_torch.parallel.engine import (
@@ -17,13 +19,23 @@ from kubernetes_scheduler_tpu_torch.parallel.engine import (
     sharded_device_count,
     stack_shard_deltas,
 )
-from kubernetes_scheduler_tpu_torch.parallel.mesh import NODE_AXIS, Mesh, make_mesh
+from kubernetes_scheduler_tpu_torch.parallel.mesh import (
+    DCN_AXIS,
+    DP_AXIS,
+    NODE_AXIS,
+    Mesh,
+    make_mesh,
+    make_mesh_multihost,
+)
 
 __all__ = [
+    "DCN_AXIS",
+    "DP_AXIS",
     "NODE_AXIS",
     "Mesh",
     "ShardedEngine",
     "make_mesh",
+    "make_mesh_multihost",
     "make_sharded_schedule_fn",
     "make_sharded_windows_fn",
     "shard_snapshot",

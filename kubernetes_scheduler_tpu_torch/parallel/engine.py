@@ -23,7 +23,10 @@ vector (utilization statistics, softmax), the auction's tie jitter hashes
 GLOBAL columns (ops/assign.tie_jitter's col_offset), and count arithmetic
 is exact. The engine is single-controller: one process drives every shard
 (several shards may share one device), so on the fused path kernel K1 runs
-once per shard per window, on the shard's own node columns.
+once per shard per window, on the shard's own node columns. On a 2-D
+(dcn, node) mesh (make_mesh_multihost) `node_axes` names both axes and
+shard k is the k-th device in row-major order, so the program, and its
+results, are the 1-D mesh's over the same devices.
 
 Results come back on the mesh's lead device with the dense result types:
 per-node leaves concatenated in shard order.
@@ -93,12 +96,14 @@ from kubernetes_scheduler_tpu_torch.ops.stats import (
     UtilizationStats,
 )
 from kubernetes_scheduler_tpu_torch.parallel.mesh import (
+    NODE_AXIS,
     Mesh,
     broadcast,
     gather_cat,
     make_mesh,
     pmax,
     pmin,
+    reduce_lead,
     to_lead,
 )
 
@@ -356,10 +361,7 @@ def _owner_rows(values, local_idx, mine, mesh: Mesh, fill):
         torch.where(m[..., None], v[i], fill)
         for v, i, m in zip(values, local_idx, mine)
     ]
-    total = None
-    for x in to_lead(parts, mesh):
-        total = x if total is None else total + x
-    return total
+    return reduce_lead(torch.add, parts, mesh)
 
 
 def _fold_rep(added2, dom, inc_m, inc_a) -> torch.Tensor:
@@ -644,6 +646,16 @@ def _sharded_auction(norm, feasible, pods_r, free0, shards, mesh: Mesh, *,
 # ---- programs ------------------------------------------------------------------------
 
 
+def check_node_axes(mesh: Mesh, node_axes) -> None:
+    """ValueError unless `node_axes` is `mesh`'s axis tuple (one name for a
+    1-D mesh): "lacks axes" for an axis the mesh lacks, as the
+    reference's _mesh_specs."""
+    axes = mesh.axes(node_axes)
+    if axes != mesh.axis_names:
+        raise ValueError(f"node_axes {axes} must name every axis of the mesh, in order: "
+                         f"{mesh.axis_names}")
+
+
 def check_options(*, assigner, policy, normalizer, fused, score_fn, score_plugins) -> None:
     """ValueError for options no sharded program serves."""
     if assigner not in ("greedy", "auction"):
@@ -701,6 +713,7 @@ def make_sharded_schedule_fn(
     *,
     policy: str = "balanced_cpu_diskio",
     normalizer: str = "min_max",
+    node_axes: str | tuple[str, ...] = NODE_AXIS,
     soft: bool = False,
     score_fn=None,
     assigner: str = "greedy",
@@ -718,7 +731,14 @@ def make_sharded_schedule_fn(
     (exact in both of the dense engine's affinity modes), and gangs are
     not masked (the host's backstop re-masks). fused=True runs K1 per
     shard and needs normalizer "none"; resident_layout=True (fused only)
-    takes a third operand, the list of per-shard FusedLayouts."""
+    takes a third operand, the list of per-shard FusedLayouts.
+
+    node_axes: the mesh's axes, which the node axis shards over in
+    row-major order: NODE_AXIS for make_mesh, (DCN_AXIS, NODE_AXIS) for
+    make_mesh_multihost. ValueError "lacks axes" for an axis the mesh
+    lacks, and for a strict subset (the reference's replication over the
+    other axes has no caller here)."""
+    check_node_axes(mesh, node_axes)
     if resident_layout and not fused:
         raise ValueError("resident_layout=True requires fused=True")
     check_options(assigner=assigner, policy=policy,
@@ -754,6 +774,7 @@ def make_sharded_windows_fn(
     *,
     policy: str = "balanced_cpu_diskio",
     normalizer: str = "min_max",
+    node_axes: str | tuple[str, ...] = NODE_AXIS,
     soft: bool = False,
     score_fn=None,
     assigner: str = "greedy",
@@ -767,7 +788,9 @@ def make_sharded_windows_fn(
     (engine.stack_windows), returning engine.WindowsResult on the lead.
     The loop over windows carries each shard's requested capacity and
     its domain match and avoider counts exactly as engine.run_windows_scan
-    does, so window k + 1 sees window k's placements."""
+    does, so window k + 1 sees window k's placements. node_axes as for
+    make_sharded_schedule_fn."""
+    check_node_axes(mesh, node_axes)
     check_options(assigner=assigner, policy=policy,
                    normalizer=normalizer, fused=fused, score_fn=score_fn,
                    score_plugins=score_plugins)
@@ -854,7 +877,9 @@ class ShardedEngine:
     """In-process node-sharded engine with TorchEngine's call surface
     (the host scheduler's config.sharded_engine), over `mesh` (default:
     the first sharded_device_count() CUDA devices; RuntimeError without
-    CUDA).
+    CUDA), the node axis sharded over `node_axes` as in
+    make_sharded_schedule_fn: (DCN_AXIS, NODE_AXIS) for a mesh from
+    make_mesh_multihost.
 
     Resident state is per shard: a full upload splits the snapshot into
     each shard's private rows; a later delta is routed to the shards that
@@ -876,8 +901,9 @@ class ShardedEngine:
     learned scorer on the mesh); `policy` and `fused` are then absorbed,
     as LearnedEngine absorbs them."""
 
-    def __init__(self, mesh: Mesh | None = None, *, score_fn=None):
+    def __init__(self, mesh: Mesh | None = None, *, node_axes=NODE_AXIS, score_fn=None):
         self.mesh = mesh if mesh is not None else make_mesh(sharded_device_count())
+        check_node_axes(self.mesh, node_axes)
         self.score_fn = score_fn
         self.device = self.mesh.lead
         self._resident: _ShardedResident | None = None
@@ -929,8 +955,9 @@ class ShardedEngine:
             score_fn=self.score_fn,
         )
         if schedule:
-            return make_sharded_schedule_fn(self.mesh, resident_layout=resident_layout, **build)
-        return make_sharded_windows_fn(self.mesh, **build)
+            return make_sharded_schedule_fn(self.mesh, node_axes=self.mesh.axis_names,
+                                            resident_layout=resident_layout, **build)
+        return make_sharded_windows_fn(self.mesh, node_axes=self.mesh.axis_names, **build)
 
     def _pending(self, result) -> PendingSchedule:
         if self.device.type != "cuda":

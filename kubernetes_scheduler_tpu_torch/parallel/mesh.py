@@ -1,14 +1,21 @@
 """Device meshes and their collectives (counterpart of
 kubernetes_scheduler_tpu/parallel/mesh.py).
 
-One logical axis, `node`: the cluster-node dimension is split into
-contiguous shards, one per mesh device. The sharded engine is
-single-controller, as the reference's is: one process holds every shard
-and calls one engine object, so a mesh here is an ordered list of torch
-devices, and a collective is a function over the per-shard tensors: each
-shard's value moves to the lead device, the reduction runs there in shard
-order, and the result is copied back to every shard without blocking the
-host. Nothing is read to the host.
+A mesh is a grid of torch devices with named axes: one axis, `node`, by
+default (make_mesh), or (`dcn`, `node`) for the reference's slice spanning
+hosts (make_mesh_multihost). The sharded engine is single-controller, as
+the reference's is: one process holds every shard and calls one engine
+object, so a collective is a function over the per-shard tensors. Shard k
+is the mesh's k-th device in row-major order, the node order of the
+reference's PartitionSpec((outer, inner)), so a (2, 2) mesh and a 1-D mesh
+over the same four devices hold the same node blocks.
+
+A collective reduces over every axis of the mesh: each shard's value moves
+to the lead device, the reduction runs there in shard order, and the
+result is copied back to every shard without blocking the host. Nothing is
+read to the host. psum and pmax may instead name some of the axes, as
+jax.lax.psum(x, axis_name) does: over `node` alone on a (dp, node) mesh
+each dp row reduces apart, on its first device, in shard order.
 
 A mesh may name one device several times: one card (or the CPU) then
 holds several shards, the counterpart of the reference's virtual CPU
@@ -18,22 +25,39 @@ devices. Copies between shards on one device are no-ops.
 from __future__ import annotations
 
 import functools
+import math
 
+import numpy as np
 import torch
 
 from kubernetes_scheduler_tpu_torch.device import resolve_device
 
 NODE_AXIS = "node"
+# the outer axis of the reference's mesh across hosts
+DCN_AXIS = "dcn"
+# the pod (data-parallel) axis of the learned scorer's training mesh
+DP_AXIS = "dp"
 
 
 class Mesh:
-    """An ordered list of torch devices, one per node shard: shard k holds
+    """Torch devices on a grid of named axes, listed in row-major order:
+    `shape` (default (len(devices),)) and `axis_names` (default
+    (NODE_AXIS,)). A node-sharded program over the mesh gives shard k the
     nodes [k * n_local, (k + 1) * n_local)."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, shape=None, axis_names=None):
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        self.shape = (len(self.devices),) if shape is None else tuple(int(s) for s in shape)
+        self.axis_names = (NODE_AXIS,) if axis_names is None else tuple(axis_names)
+        if (math.prod(self.shape) != len(self.devices)
+                or len(self.shape) != len(self.axis_names)
+                or len(set(self.axis_names)) != len(self.axis_names)):
+            raise ValueError(
+                f"{len(self.devices)} devices do not fill the shape {self.shape} with "
+                f"distinct axes {self.axis_names}"
+            )
 
     @property
     def size(self) -> int:
@@ -44,8 +68,29 @@ class Mesh:
         """The device collectives reduce on and results are returned on."""
         return self.devices[0]
 
+    def axes(self, names) -> tuple:
+        """`names` (one axis name or a tuple) as a tuple, ValueError naming
+        any axis the mesh lacks."""
+        names = names if isinstance(names, tuple) else (names,)
+        missing = [a for a in names if a not in self.axis_names]
+        if missing:
+            raise ValueError(f"mesh {self.axis_names} lacks axes {missing}")
+        return names
+
+    def blocks(self, names=None) -> list:
+        """The shard indices of each group a reduction over the axes
+        `names` (default every axis) runs within, in shard order: one group
+        of every shard for every axis, else one group per index of the
+        other axes."""
+        if names is None:
+            return [list(range(self.size))]
+        named = [self.axis_names.index(a) for a in self.axes(names)]
+        rest = [i for i in range(len(self.shape)) if i not in named]
+        grid = np.arange(self.size).reshape(self.shape).transpose(rest + sorted(named))
+        return grid.reshape(-1, math.prod(self.shape[i] for i in named)).tolist()
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        return f"Mesh({[str(d) for d in self.devices]}, shape={self.shape}, axes={self.axis_names})"
 
 
 def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
@@ -63,10 +108,44 @@ def make_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
                 "device= to put several shards on one device"
             )
         return Mesh([torch.device("cuda", i) for i in range(n)])
+    return Mesh([_one_device(device)] * (1 if n_devices is None else int(n_devices)))
+
+
+def make_mesh_multihost(n_hosts: int, devices_per_host: int | None = None, *,
+                        device=None) -> Mesh:
+    """A 2-D (hosts, devices per host) mesh over (DCN_AXIS, NODE_AXIS), the
+    reference's mesh for a slice spanning hosts; the node axis shards over
+    both (ShardedEngine(mesh, node_axes=(DCN_AXIS, NODE_AXIS))). The port
+    is single-controller, so the grid is of the devices this process sees.
+    Without `device`: the first n_hosts x devices_per_host visible CUDA
+    devices (devices_per_host default: visible // n_hosts), ValueError
+    when fewer are visible, RuntimeError without CUDA. With `device`: that
+    one device n_hosts x devices_per_host times (devices_per_host
+    required)."""
+    if device is None:
+        resolve_device("cuda")
+        have = torch.cuda.device_count()
+        if devices_per_host is None:
+            devices_per_host = have // n_hosts
+        need = n_hosts * devices_per_host
+        if have < need:
+            raise ValueError(f"need {need} devices, have {have}")
+        devices = [torch.device("cuda", i) for i in range(need)]
+    else:
+        if devices_per_host is None:
+            raise ValueError("make_mesh_multihost(device=...) needs devices_per_host")
+        devices = [_one_device(device)] * (n_hosts * devices_per_host)
+    return Mesh(devices, (n_hosts, devices_per_host), (DCN_AXIS, NODE_AXIS))
+
+
+def _one_device(device) -> torch.device:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh([dev] * (1 if n_devices is None else int(n_devices)))
+    return dev
+
+
+# ---- collectives ----------------------------------------------------------------
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh) -> list:
@@ -79,17 +158,29 @@ def to_lead(xs, mesh: Mesh) -> list:
     return [x.to(mesh.lead, non_blocking=True) for x in xs]
 
 
-def _reduce(op, xs, mesh: Mesh) -> list:
-    return broadcast(functools.reduce(op, to_lead(xs, mesh)), mesh)
+def reduce_lead(op, xs, mesh: Mesh) -> torch.Tensor:
+    """op over every shard's value, in shard order, on the lead device."""
+    return functools.reduce(op, to_lead(xs, mesh))
 
 
-def psum(xs, mesh: Mesh) -> list:
-    """The shards' values summed in shard order, on every shard."""
-    return _reduce(torch.add, xs, mesh)
+def _reduce(op, xs, mesh: Mesh, axes=None) -> list:
+    out = [None] * mesh.size
+    for group in mesh.blocks(axes):
+        first = mesh.devices[group[0]]
+        y = functools.reduce(op, [xs[i].to(first, non_blocking=True) for i in group])
+        for i in group:
+            out[i] = y.to(mesh.devices[i], non_blocking=True)
+    return out
 
 
-def pmax(xs, mesh: Mesh) -> list:
-    return _reduce(torch.maximum, xs, mesh)
+def psum(xs, mesh: Mesh, axes=None) -> list:
+    """The shards' values summed in shard order over `axes` (default
+    every axis), on every shard."""
+    return _reduce(torch.add, xs, mesh, axes)
+
+
+def pmax(xs, mesh: Mesh, axes=None) -> list:
+    return _reduce(torch.maximum, xs, mesh, axes)
 
 
 def pmin(xs, mesh: Mesh) -> list:

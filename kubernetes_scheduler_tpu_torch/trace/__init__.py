@@ -10,6 +10,7 @@ other).
 - trace/inspect.py   dump / stats / diff backends for the `trace` CLI
 """
 
+from kubernetes_scheduler_tpu_torch._exports import lazy_getattr, names_in
 from kubernetes_scheduler_tpu_torch.trace.recorder import (  # noqa: F401
     CycleRecorder,
     TraceError,
@@ -17,15 +18,7 @@ from kubernetes_scheduler_tpu_torch.trace.recorder import (  # noqa: F401
     read_journal,
 )
 
-# replay exports resolve lazily: replay.py imports the engine (and so
-# torch), which the read-only journal tooling (dump/stats/diff) must not
-# pull in just for the package import
-_REPLAY_EXPORTS = ("ReplayReport", "replay_journal")
-
-
-def __getattr__(name):
-    if name in _REPLAY_EXPORTS:
-        from kubernetes_scheduler_tpu_torch.trace import replay
-
-        return getattr(replay, name)
-    raise AttributeError(name)
+# replay.py imports the engine (and so torch), which the read-only
+# journal tooling (dump/stats/diff) must not pull in for the package import
+__getattr__ = lazy_getattr(names_in(
+    "kubernetes_scheduler_tpu_torch.trace.replay", "ReplayReport", "replay_journal"))

@@ -36,6 +36,15 @@ def pad_axis(arr, size: int, axis: int = 0, fill=0):
     return np.pad(arr, widths, constant_values=fill)
 
 
+def pad_to_bucket(arr: np.ndarray, axis: int = 0, *, floor: int = 8, fill=0):
+    """Pad `axis` of a host array up to its bucket; returns (padded, mask)
+    where mask is a bool array over the padded axis marking real entries."""
+    size = bucket_size(arr.shape[axis], floor=floor)
+    mask = np.zeros(size, bool)
+    mask[: arr.shape[axis]] = True
+    return pad_axis(arr, size, axis, fill), mask
+
+
 # fields whose "absent" encoding is -1, not 0 (make_pod_batch defaults):
 # selector ids, the nodeName pin, the card wants and the gang slot
 _NEG_SENTINEL_FIELDS = frozenset({

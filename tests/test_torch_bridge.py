@@ -559,11 +559,28 @@ def test_torch_slim_replies_and_rejected_options(port_client):
 
 
 def test_torch_server_refuses_unported_options():
-    """A mesh across hosts (--mesh-hosts > 1) is the one sidecar option
-    still to port: exit 2 naming its ROADMAP item. Conflicting options
-    exit with a message before anything is built."""
+    """A mesh across hosts (--mesh-devices 4 --mesh-hosts 2) serves a
+    ShardedEngine over a (dcn, node) mesh, its replies bitwise the dense
+    engine's; a device count that does not split into the host groups and
+    conflicting options exit with a message before anything is built."""
     argv = ["--device", "cpu", "--port", "0"]
-    assert port_server_mod.main([*argv, "--mesh-devices", "2", "--mesh-hosts", "2"]) == 2
+    server, port, service = port_server_mod.server_from_args(port_server_mod.build_parser()
+        .parse_args([*argv, "--host", "127.0.0.1", "--mesh-devices", "4", "--mesh-hosts", "2"]))
+    assert service._engine.mesh.axis_names == ("dcn", "node")
+    assert service._engine.mesh.shape == (2, 2) and service.mesh_devices == 4
+    server.start()
+    client = RemoteEngine(f"127.0.0.1:{port}", deadline_seconds=120.0)
+    try:
+        snap, pods = _problem()
+        kw = dict(assigner="greedy", normalizer="min_max", fused=False)
+        got = client.schedule_batch(snap, pods, **kw)
+        want = TorchEngine(device="cpu").schedule_batch(snap, pods, **kw)
+        assert_equal_results(as_torch(got), want, "2 x 2 mesh")
+    finally:
+        client.close()
+        server.stop(None)
+    with pytest.raises(SystemExit, match="must divide"):
+        port_server_mod.main([*argv, "--mesh-devices", "3", "--mesh-hosts", "2"])
     with pytest.raises(SystemExit, match="only configures the sharded engine"):
         port_server_mod.main([*argv, "--score-plugins", '[{"name": "least_allocated"}]'])
     with pytest.raises(SystemExit, match="incompatible with --fused"):

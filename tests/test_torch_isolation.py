@@ -203,13 +203,18 @@ def test_torch_new_modules_run_with_jax_blocked(tmp_path):
 def test_torch_journal_tools_run_with_torch_blocked():
     """The journal and span tools (trace.inspect, .spans, .analyze,
     .trend) import and run where torch cannot, as the reference's run
-    without jax: stats and diff over a committed journal."""
+    without jax: stats and diff over a committed journal. The package
+    __init__s with lazy exports import there too."""
     journal = str(ROOT / "tests" / "torch_fixtures" / "ref-auction")
     code = (
         "import sys\n"
         "sys.modules['torch'] = None\n"
         "sys.modules['jax'] = None\n"
         "from kubernetes_scheduler_tpu_torch.trace import analyze, inspect, spans, trend\n"
+        "from kubernetes_scheduler_tpu_torch import __version__, host, models, ops, utils\n"
+        "from kubernetes_scheduler_tpu_torch.ops import resources\n"
+        "from kubernetes_scheduler_tpu_torch.models import get_policy\n"
+        "assert resources.N_CANONICAL == 5 and get_policy('balanced_cpu_diskio')\n"
         f"st = inspect.stats({journal!r})\n"
         f"d = inspect.diff({journal!r}, {journal!r})\n"
         "assert st['records'] == 2 and d['differences'] == 0, (st, d)\n"
@@ -398,7 +403,11 @@ def test_torch_two_tower_and_mesh_default_to_cuda():
         pytest.skip("this check needs a process without CUDA")
     from kubernetes_scheduler_tpu_torch.host.scheduler import default_engine
     from kubernetes_scheduler_tpu_torch.models.learned import LearnedEngine, init_train_state
-    from kubernetes_scheduler_tpu_torch.parallel import ShardedEngine, make_mesh
+    from kubernetes_scheduler_tpu_torch.parallel import (
+        ShardedEngine,
+        make_mesh,
+        make_mesh_multihost,
+    )
     from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
 
     params = init_train_state(0, device="cpu")[0].params
@@ -407,6 +416,8 @@ def test_torch_two_tower_and_mesh_default_to_cuda():
         lambda: LearnedEngine(params),
         lambda: make_mesh(2),
         lambda: make_mesh(2, device="cuda"),
+        lambda: make_mesh_multihost(2),
+        lambda: make_mesh_multihost(2, 1, device="cuda"),
         lambda: ShardedEngine(),
         lambda: default_engine(SchedulerConfig(policy="learned")),
         lambda: default_engine(SchedulerConfig(sharded_engine=True)),
@@ -414,6 +425,52 @@ def test_torch_two_tower_and_mesh_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_torch_exports_and_dcn_mesh_run_with_jax_blocked():
+    """Every name the package __init__s re-export resolves where jax and
+    the JAX package cannot be imported, and the (dcn, node) mesh runs
+    there: a 2 x 2 CPU mesh schedules as the dense engine does, and one
+    dp x node training step runs."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kubernetes_scheduler_tpu'] = None\n"
+        "import torch\n"
+        "for pkg in ('', '.host', '.ops', '.utils', '.models', '.parallel', '.sim',"
+        " '.kube', '.bridge'):\n"
+        "    m = importlib.import_module('kubernetes_scheduler_tpu_torch' + pkg)\n"
+        "    for name in getattr(m, '__all__', ()):\n"
+        "        getattr(m, name)\n"
+        "from kubernetes_scheduler_tpu_torch import TorchEngine, __version__\n"
+        "from kubernetes_scheduler_tpu_torch.parallel import (DCN_AXIS, NODE_AXIS, Mesh,"
+        " ShardedEngine, make_mesh_multihost)\n"
+        "from kubernetes_scheduler_tpu_torch.models import (NodeScorer, init_train_state,"
+        " make_features, sharded_train_step)\n"
+        "from kubernetes_scheduler_tpu_torch.engine import compute_scores\n"
+        "from kubernetes_scheduler_tpu_torch.sim import gen_cluster, gen_pods\n"
+        "snap = gen_cluster(32, seed=1, device='cpu')\n"
+        "pods = gen_pods(8, seed=2, device='cpu')\n"
+        "se = ShardedEngine(make_mesh_multihost(2, 2, device='cpu'),"
+        " node_axes=(DCN_AXIS, NODE_AXIS))\n"
+        "got = se.schedule_batch(snap, pods, assigner='auction')\n"
+        "want = TorchEngine(device='cpu').schedule_batch(snap, pods, assigner='auction')\n"
+        "assert se.n_shards == 4 and torch.equal(got.node_idx, want.node_idx)\n"
+        "state, model, tx = init_train_state(0, model=NodeScorer(8, 16), device='cpu')\n"
+        "mesh = Mesh(['cpu'] * 4, (2, 2), ('dp', NODE_AXIS))\n"
+        "state, loss = sharded_train_step(state, model, tx, mesh, *make_features(snap, pods),"
+        " compute_scores(snap, pods, 'balanced_cpu_diskio'), snap.node_mask, pods.pod_mask)\n"
+        "assert state.step == 1 and bool(torch.isfinite(loss))\n"
+        "assert 'jax' not in [k.split('.')[0] for k, v in sys.modules.items() if v]\n"
+        "print('ok', __version__, int(got.n_assigned))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok 0.1.0")
 
 
 def test_torch_wire_schema_is_the_references():
