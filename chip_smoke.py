@@ -6,6 +6,16 @@ Phases; the first failure exits non-zero and no result line is printed:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile csrc/fused.cu with nvcc (first use) and load it;
+   then the kernel resources (run_kernel_resources): a second build into
+   a fresh temporary directory, so ptxas's report is never the empty log
+   of a reused library; every kernel and template instantiation's
+   registers, static shared memory, stack frame, spill stores, spill
+   loads and local memory, held EXACTLY against
+   csrc/kernel_budget.json (spills and local memory must be 0); and
+   greedy_pass_kernel's dynamic shared memory at the main path's n and r
+   beside the card's opt-in limit, with whether the pass runs in shared
+   memory there. One `{"phase": "kernel_resources", ...}` line; a reading
+   that does not parse, a missing nvcc or a stale budget fails the run;
 3. kernels: each hand-written kernel (K1 masked_score, K2 row_stats,
    K3 auction_bid, K4 greedy_scan) against its plain PyTorch version on
    the card, at the main path's shapes (1,024 pods x 10,000 nodes x 3
@@ -3767,6 +3777,7 @@ def load_port() -> dict:
             run,
             scenario_config,
         )
+        from kubernetes_scheduler_tpu_torch.analysis import kernel_budget
         from kubernetes_scheduler_tpu_torch.trace import analyze, inspect
         from kubernetes_scheduler_tpu_torch.trace.replay import (
             engine_kw_from_record,
@@ -3807,8 +3818,44 @@ def load_port() -> dict:
         make_server=make_server, RemoteEngine=RemoteEngine, cli_main=cli_main,
         KubeBinder=KubeBinder, to_host=to_host, learned=learned, parallel=parallel,
         server=server, compute_scores=compute_scores,
+        kernel_budget=kernel_budget,
     )
     return port
+
+
+def run_kernel_resources(torch, port, n: int, r: int) -> None:
+    """Phase 2b: the kernels' registers, shared memory and spills from a
+    fresh nvcc build, held exactly against csrc/kernel_budget.json, and
+    greedy_pass_kernel's dynamic shared memory at n nodes x r resources
+    (the main path's) beside the card's opt-in limit. Fails on a reading
+    it cannot parse, on nvcc missing, and on any difference."""
+    kb = port["kernel_budget"]
+    t0 = time.perf_counter()
+    try:
+        measured = kb.measure()
+    except (RuntimeError, ValueError, OSError) as e:
+        fail(f"kernel_resources: no ptxas reading: {e}")
+    seconds = time.perf_counter() - t0
+    budget = kb.load_budget()
+    pass_static = max(
+        row["static_smem_bytes"] for row in measured["kernels"]
+        if row["kernel"].startswith("greedy_pass_kernel")
+    )
+    optin = int(torch.cuda.get_device_properties(0).shared_memory_per_block_optin)
+    need = n * r * 4  # the free-capacity carry, float32 (launch_greedy_scan)
+    problems = kb.compare(measured, budget)
+    emit({
+        "phase": "kernel_resources", "seconds": seconds,
+        "nvcc": measured["nvcc"], "budget_nvcc": budget.get("nvcc"),
+        "kernels": measured["kernels"],
+        "greedy_pass_dynamic_smem": {
+            "n": n, "r": r, "dynamic_bytes": need, "static_bytes": pass_static,
+            "optin_bytes": optin, "in_shared_memory": need + pass_static <= optin,
+        },
+        "budget_matches": not problems,
+    })
+    if problems:
+        fail("kernel_resources: " + "; ".join(problems))
 
 
 def main() -> None:
@@ -3850,19 +3897,21 @@ def main() -> None:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path, log = _build.build()
+    lib_path, _log = _build.build()
     _build.load_library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.3f} s", flush=True)
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            print(f"  {ln.strip()}", flush=True)
 
-    # ---- 3. kernels against their plain versions ------------------------
     snap, pods = gen_config("gpu-10kx10k", seed=0, device=dev)
     if args.mesh_cards:
         run_mesh_cards(torch, port, snap, pods)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
         return
+
+    # ---- 2b. kernel resources against csrc/kernel_budget.json -----------
+    n_nodes, n_res = snap.allocatable.shape
+    run_kernel_resources(torch, port, int(n_nodes), int(n_res))
+
+    # ---- 3. kernels against their plain versions ------------------------
     window = type(pods)(*[f[:WINDOW] for f in pods])
     sel_snap = gen_cluster(10_000, seed=0, constraints=True, device=dev)
     sel_pods = gen_pods(WINDOW, seed=1, constraints=True, device=dev)

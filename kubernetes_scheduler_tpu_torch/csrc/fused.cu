@@ -571,6 +571,20 @@ __device__ __forceinline__ bool fits(const float* q, const float* cap,
   return ok;
 }
 
+// fits() with its loop over resources kept rolled, for K4's list kernel:
+// there nvcc unrolled the four inlined copies and ptxas spilled 16 bytes
+// (8 with kVec) though the kernel used 48 of its 255 registers; rolled,
+// the kernel spills nothing (csrc/kernel_budget.json). The same tests in
+// the same order, so the same result.
+__device__ __forceinline__ bool fits_rolled(const float* q, const float* cap,
+                                            int col, int r) {
+  const float* c = cap + (size_t)col * r;
+  bool ok = true;
+#pragma unroll 1
+  for (int k = 0; k < r; ++k) ok = ok & ((q[k] <= c[k]) | (q[k] == 0.0f));
+  return ok;
+}
+
 // K3: one block per pod row. An active pod's row is reduced to the first
 // column of max(sj - price) over cells with sj > NEG/2 and capacity for
 // every requested resource; bid = 0, has = 0 when no cell qualifies.
@@ -788,10 +802,10 @@ __global__ void __launch_bounds__(kListThreads) greedy_lists_kernel(
       const unsigned kx = value_key(x.x), ky = value_key(x.y),
                      kz = value_key(x.z), kw = value_key(x.w);
       unsigned pend = 0;
-      if (kx > thr && fits(s_req, free0, j, r)) pend |= 1u;
-      if (ky > thr && fits(s_req, free0, j + 1, r)) pend |= 2u;
-      if (kz > thr && fits(s_req, free0, j + 2, r)) pend |= 4u;
-      if (kw > thr && fits(s_req, free0, j + 3, r)) pend |= 8u;
+      if (kx > thr && fits_rolled(s_req, free0, j, r)) pend |= 1u;
+      if (ky > thr && fits_rolled(s_req, free0, j + 1, r)) pend |= 2u;
+      if (kz > thr && fits_rolled(s_req, free0, j + 2, r)) pend |= 4u;
+      if (kw > thr && fits_rolled(s_req, free0, j + 3, r)) pend |= 8u;
       for (unsigned who = __ballot_sync(kFull, pend != 0); who != 0;
            who = __ballot_sync(kFull, pend != 0)) {
         const int src = __ffs(who) - 1;

@@ -2681,6 +2681,7 @@ class Scheduler:
             # bucket padding overshot the window multiple: drop only
             # pod_mask=False padding rows
             pods_batch = type(pods_batch)(
+                # graftlint: disable=host-sync -- builder leaves are host numpy; trimming pad rows, no device sync
                 *[np.asarray(a)[:n_padded] for a in pods_batch]
             )
         windows = stack_windows(pods_batch, bw)

@@ -138,6 +138,7 @@ def shard_snapshot(snapshot, mesh: Mesh, *, private: bool = False) -> list:
         rows = slice(k * n_local, (k + 1) * n_local)
         leaves = {}
         for name, x in zip(SnapshotArrays._fields, snapshot):
+            # graftlint: disable=host-sync -- np.asarray only on host numpy leaves (tensors are sliced); no device sync
             src = x[rows] if isinstance(x, torch.Tensor) else np.asarray(x)[rows]
             t = as_leaf(src, SNAPSHOT_DTYPES[name], dev)
             if private and isinstance(x, torch.Tensor) and t.data_ptr() == src.data_ptr():
@@ -638,6 +639,7 @@ def _sharded_auction(norm, feasible, pods_r, free0, shards, mesh: Mesh, *,
             rejected.scatter_reduce_(0, local[k], (mine[k] & ~adm_r[k]).to(_I32), "amax")
             free[k] = free[k] - used
             price[k] = price[k] + torch.where(rejected > 0, price_frac, 0.0)
+        # graftlint: disable=host-transfer -- the auction's exit test: one flag read every CHECK_EVERY rounds, the host loop's only read per round block
         if (rnd + 1) % CHECK_EVERY == 0 and not bool(has_bid.any()):
             break
     return assigned, free, added2
@@ -1024,6 +1026,7 @@ class ShardedEngine:
         if delta is not None and st is not None and st.accepts(delta, epoch):
             self._fold_delta(st, delta, epoch)
             return st
+        # graftlint: disable=host-transfer -- deliberate one-time materialization; full uploads ship the whole snapshot by definition
         mask = np.array(
             snapshot.node_mask.cpu().numpy() if isinstance(snapshot.node_mask, torch.Tensor)
             else np.asarray(snapshot.node_mask), bool,
@@ -1076,13 +1079,16 @@ def stack_shard_deltas(delta: SnapshotDelta, routed: dict, n_shards: int) -> Sna
     s = int(np.asarray(delta.dom_vals).shape[1])
 
     def stack(rows_attr: str, vals_attr: str, val_shape: tuple):
+        # graftlint: disable=host-sync -- deltas are host numpy (built by host/snapshot.py); no device sync
         k = max((np.asarray(getattr(d, rows_attr)).shape[0] for d in routed.values()),
                 default=8)
         rows = np.full((n_shards, k), n_local, np.int32)
         vals = np.zeros((n_shards, k) + val_shape, np.float32)
         for i, d in routed.items():
+            # graftlint: disable=host-sync -- deltas are host numpy (built by host/snapshot.py); no device sync
             rr = np.asarray(getattr(d, rows_attr))
             rows[i, : rr.shape[0]] = rr
+            # graftlint: disable=host-sync -- the same host numpy delta
             vals[i, : rr.shape[0]] = np.asarray(getattr(d, vals_attr))
         return rows, vals
 

@@ -91,7 +91,7 @@ class SpanWriter:
             self._f.close()
         fp = os.path.join(self.path, _FILE_PATTERN % self._next_index)
         self._next_index += 1
-        # called only from append, which holds self._lock
+        # graftlint: disable=lock-discipline -- called only from append, which holds self._lock
         self._f = open(fp, "w", encoding="utf-8")
         meta = json.dumps(
             {
@@ -105,7 +105,7 @@ class SpanWriter:
         )
         head = "[\n" + meta + ",\n"
         self._f.write(head)
-        # called only from append, which holds self._lock
+        # graftlint: disable=lock-discipline -- called only from append, which holds self._lock
         self._file_size = len(head)
         enforce_disk_budget(
             span_files(self.path), self.max_bytes, keep=self._f.name

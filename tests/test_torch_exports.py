@@ -4,9 +4,10 @@ read from the source, so the reference's modules are not imported)
 resolves in the port's package of the same name, and utils.padding's
 pad_to_bucket is bitwise the reference's.
 
-`analysis/` has no counterpart yet; the sharded fold factories were
-folded into ShardedEngine's resident state, which the mesh tests hold
-against the reference's."""
+`analysis/` is ported as far as its layer 1 (its package exports the
+reference's Context, Violation and run_lint); the sharded fold factories
+were folded into ShardedEngine's resident state, which the mesh tests
+hold against the reference's."""
 
 import ast
 import importlib
@@ -20,7 +21,7 @@ from kubernetes_scheduler_tpu_torch.utils import pad_to_bucket
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = ["", "host", "ops", "utils", "models", "parallel", "bridge", "kube", "sim",
-            "sim.scenarios", "trace", "native"]
+            "sim.scenarios", "trace", "native", "analysis"]
 FOLDED = {"make_sharded_apply_delta_fn", "make_sharded_build_layout_fn",
           "make_sharded_apply_layout_fn"}
 
