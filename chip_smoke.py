@@ -16,6 +16,17 @@ Phases; the first failure exits non-zero and no result line is printed:
    beside the card's opt-in limit, with whether the pass runs in shared
    memory there. One `{"phase": "kernel_resources", ...}` line; a reading
    that does not parse, a missing nvcc or a stale budget fails the run;
+   then the contracts (run_contracts, phase 2c): layer 2 of the port's
+   checker on the card — every engine entry point and the four kernel
+   wrappers at the checker's grid and at the main path's width (10,000
+   nodes x 1,024 pods x 3 resources, 8 windows), each output's shapes and
+   dtypes against the declared spec; the sharded surfaces on a 4-shard
+   and a 2 x 2 (dcn, node) mesh of the card at the grid and at full width
+   with 2 windows; the collective call sites read on the card equal to
+   analysis/COLLECTIVE_BUDGET.json (written on the CPU); the SPMD mutant
+   harness on the card. One `{"phase": "contracts", ...}` line with the
+   K1-K4 launches of the phase; any violation, or a kernel that never
+   launched, fails the run;
 3. kernels: each hand-written kernel (K1 masked_score, K2 row_stats,
    K3 auction_bid, K4 greedy_scan) against its plain PyTorch version on
    the card, at the main path's shapes (1,024 pods x 10,000 nodes x 3
@@ -167,8 +178,8 @@ Phases; the first failure exits non-zero and no result line is printed:
    delta cycles, the learned scorer, the sidecar with --mesh-hosts 2; the
    learned scorer's dp x node training step against the dense step (loss,
    parameters, ms, peak memory);
-23. the kernels line (with the launches of phases 12-22), then the
-   result line.
+23. the kernels line (with the launches of phases 2c and 12-22), then
+   the result line.
 
 Phases 7-22 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
@@ -3777,7 +3788,11 @@ def load_port() -> dict:
             run,
             scenario_config,
         )
-        from kubernetes_scheduler_tpu_torch.analysis import kernel_budget
+        from kubernetes_scheduler_tpu_torch.analysis import (
+            contracts,
+            kernel_budget,
+            spmd_mutants,
+        )
         from kubernetes_scheduler_tpu_torch.trace import analyze, inspect
         from kubernetes_scheduler_tpu_torch.trace.replay import (
             engine_kw_from_record,
@@ -3818,7 +3833,7 @@ def load_port() -> dict:
         make_server=make_server, RemoteEngine=RemoteEngine, cli_main=cli_main,
         KubeBinder=KubeBinder, to_host=to_host, learned=learned, parallel=parallel,
         server=server, compute_scores=compute_scores,
-        kernel_budget=kernel_budget,
+        kernel_budget=kernel_budget, contracts=contracts, spmd_mutants=spmd_mutants,
     )
     return port
 
@@ -3856,6 +3871,54 @@ def run_kernel_resources(torch, port, n: int, r: int) -> None:
     })
     if problems:
         fail("kernel_resources: " + "; ".join(problems))
+
+
+def run_contracts(torch, port, device: str = "cuda") -> dict:
+    """Phase 2c: layer 2 of the port's checker on the card. The dense
+    contracts at the checker's GRID and at the main path's width, the
+    sharded contracts on both meshes at GRID and at full width with 2
+    windows (the sharded greedy is ~0.7 s a window on 4 shards; the
+    option variants at GRID only), the collective call sites read here
+    against the budget file written on the CPU, and the SPMD mutant
+    harness. Launch counts are reset just before and read just after;
+    fails on any violation (a budget that differs is one) and when K1,
+    K2, K3 or K4 never launched."""
+    contracts, fused = port["contracts"], port["fused"]
+    t0 = time.perf_counter()
+    fused.reset_launches()
+    dense, sharded = [], []
+    violations = contracts.check_contracts(
+        device=device, grid=contracts.GRID + (contracts.FULL,), checked=dense)
+    dense_launches = dict(fused.launches)
+    violations += contracts.check_sharded_contracts(
+        device=device, grid=contracts.GRID + (dict(contracts.FULL, w=2),), checked=sharded)
+    launches = dict(fused.launches)
+    contracts_s = time.perf_counter() - t0
+    # check_sharded_contracts held each mesh's call sites, read here on the
+    # card, to the budget file written on the CPU: a difference is a
+    # collective-budget finding tagged with the mesh's name
+    budget_equal = {
+        name: not any(v.rule == contracts.BUDGET_RULE and v.message.startswith(f"[{name}]")
+                      for v in violations)
+        for name in contracts.meshes(device)
+    }
+    violations += port["spmd_mutants"].check_spmd_mutants(device)
+    emit({
+        "phase": "contracts", "device": device,
+        "surfaces": sorted(set(contracts.CONTRACT_NAMES) | set(contracts.SHARDED_CONTRACT_NAMES)),
+        "checks": len(dense) + len(sharded),
+        "full_width_checks": sum(g["n"] == contracts.FULL["n"] for *_, g in dense + sharded),
+        "violations": len(violations), "seconds": time.perf_counter() - t0,
+        "contract_seconds": contracts_s,
+        "launches": launches, "dense_launches": dense_launches,
+        "budget_equal": budget_equal,
+    })
+    if violations:
+        fail("contracts: " + "; ".join(v.format() for v in violations[:8]))
+    missing = [name for name in REPLACES if launches[name] < 1]
+    if missing:
+        fail(f"contracts: {missing} never launched in the contracts phase")
+    return launches
 
 
 def main() -> None:
@@ -3910,6 +3973,9 @@ def main() -> None:
     # ---- 2b. kernel resources against csrc/kernel_budget.json -----------
     n_nodes, n_res = snap.allocatable.shape
     run_kernel_resources(torch, port, int(n_nodes), int(n_res))
+
+    # ---- 2c. the engine contracts and the collective budget on the card --
+    contracts_launches = run_contracts(torch, port)
 
     # ---- 3. kernels against their plain versions ------------------------
     window = type(pods)(*[f[:WINDOW] for f in pods])
@@ -4027,6 +4093,7 @@ def main() -> None:
             "bound_by": main_line["bound_by"], "library_ms": None,
             "parity": "bitwise", "case": MAIN_CASE[name],
             "main_path": f"{MAIN_PATH[name]} backlog",
+            "contracts_launches": contracts_launches[name],
             "multi_scorer_launches": {k: v[name] for k, v in multi.items()},
             "resident_launches": {path: {run: counts[name] for run, counts in runs.items()}
                                   for path, runs in resident.items()},

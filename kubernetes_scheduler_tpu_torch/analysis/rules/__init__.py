@@ -1,6 +1,6 @@
 """Rule registry: name -> check(ctx) -> list[Violation].
 
-Fourteen families. Ten are the JAX package's, copied with their scopes
+Fifteen families. Ten are the JAX package's, copied with their scopes
 repointed at this package: lock-discipline, timeout-hygiene,
 metric-hygiene, span-hygiene, sim-determinism, wire-schema and
 capability-completeness check one file (or the bridge against its
@@ -12,7 +12,11 @@ per-element reads in the cycle path), host-transfer (implicit
 device-to-host syncs on tensors in the hot path), dtype-shape (float64
 in the engine) and cuda-kernel (the twin of pallas-vmem: the CUDA
 sources' launch bounds, host callbacks, accumulators, static shared
-memory, the ctypes table and the kernel budget file).
+memory, the ctypes table and the kernel budget file). The fifteenth,
+spmd-collective, twins the reference's family of that name over the
+sharded engine's per-shard lists (analysis/spmd.py): double-counting
+psums, unbound axis names, redundant gathers, gather_cat's dim misuse,
+and one shard's value returned as the global answer.
 The README's "Static analysis of the port" table must name exactly this
 registry (checked both ways by the `docs-drift` runner check).
 """
@@ -29,6 +33,7 @@ from kubernetes_scheduler_tpu_torch.analysis.rules import (
     metric_hygiene,
     sim_determinism,
     span_hygiene,
+    spmd_collective,
     thread_race,
     timeout_hygiene,
     wire_schema,
@@ -47,6 +52,7 @@ RULES = {
     host_transfer.RULE: host_transfer.check,
     lockset_race.RULE: lockset_race.check,
     capability_completeness.RULE: capability_completeness.check,
+    spmd_collective.RULE: spmd_collective.check,
     thread_race.RULE: thread_race.check,
     determinism_taint.RULE: determinism_taint.check,
 }

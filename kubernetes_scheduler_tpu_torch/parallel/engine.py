@@ -1037,15 +1037,25 @@ class ShardedEngine:
         self.resident_used_delta = False
         return st
 
-    def schedule_resident(self, snapshot, pods, *, delta=None, epoch=0, **kw) -> ScheduleResult:
+    def upload_resident(self, snapshot, *, delta=None, epoch=0, layouts=False) -> tuple:
+        """(shards, layouts): the retained per-shard snapshots after this
+        call's delta fold or full upload, and their FusedLayouts, built on
+        the first call that asks for them (layouts=True) and folded by
+        every later delta; None until then. The first step of every
+        resident program."""
         st = self._resident_dispatch(snapshot, delta, epoch)
-        if kw.get("fused") and self.score_fn is None:
-            if st.layouts is None:
-                st.layouts = [build_fused_layout(sh) for sh in st.shards]
+        if layouts and st.layouts is None:
+            st.layouts = [build_fused_layout(sh) for sh in st.shards]
+        return st.shards, st.layouts
+
+    def schedule_resident(self, snapshot, pods, *, delta=None, epoch=0, **kw) -> ScheduleResult:
+        fused = bool(kw.get("fused")) and self.score_fn is None
+        shards, layouts = self.upload_resident(snapshot, delta=delta, epoch=epoch, layouts=fused)
+        if fused:
             return self._program("schedule", kw, resident_layout=True)(
-                st.shards, pods, st.layouts, **self._knobs(kw)
+                shards, pods, layouts, **self._knobs(kw)
             )
-        return self._program("schedule", kw)(st.shards, pods, **self._knobs(kw))
+        return self._program("schedule", kw)(shards, pods, **self._knobs(kw))
 
     def schedule_resident_async(self, snapshot, pods, *, delta=None, epoch=0, **kw):
         return self._pending(
@@ -1058,8 +1068,8 @@ class ShardedEngine:
         state remains the pre-backlog snapshot), and the layouts, when
         built, keep folding deltas so later fused single-window cycles
         stay current."""
-        st = self._resident_dispatch(snapshot, delta, epoch)
-        return self._program("windows", kw)(st.shards, pods_windows, **self._knobs(kw))
+        shards, _ = self.upload_resident(snapshot, delta=delta, epoch=epoch)
+        return self._program("windows", kw)(shards, pods_windows, **self._knobs(kw))
 
 
 def stack_shard_deltas(delta: SnapshotDelta, routed: dict, n_shards: int) -> SnapshotDelta:

@@ -20,12 +20,18 @@ each dp row reduces apart, on its first device, in shard order.
 A mesh may name one device several times: one card (or the CPU) then
 holds several shards, the counterpart of the reference's virtual CPU
 devices. Copies between shards on one device are no-ops.
+
+set_observer installs a callable told of every collective called from
+outside this module, with its call site (the collective budget of
+analysis/contracts.py); with none installed a collective pays one
+`is None` check.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import sys
 
 import numpy as np
 import torch
@@ -147,19 +153,47 @@ def _one_device(device) -> torch.device:
 
 # ---- collectives ----------------------------------------------------------------
 
+# None, or observer(kind, filename, lineno), told of each collective at its
+# call site outside this module (set_observer)
+_observer = None
+
+
+def set_observer(observer):
+    """Install `observer(kind, filename, lineno)` (None removes it) and
+    return the one it replaces. It is told of each collective whose
+    caller lies outside this module, so a collective that another one
+    calls (to_lead inside all_gather, gather_cat and reduce_lead) is not
+    told twice."""
+    global _observer
+    previous, _observer = _observer, observer
+    return previous
+
+
+def _observe(kind: str) -> None:
+    # frame 0 is this function, frame 1 the collective, frame 2 its caller
+    caller = sys._getframe(2)
+    if caller.f_code.co_filename != __file__:
+        _observer(kind, caller.f_code.co_filename, caller.f_lineno)
+
 
 def broadcast(x: torch.Tensor, mesh: Mesh) -> list:
     """[x on every shard's device]: the same tensor where the device is
     x's own, a non-blocking copy elsewhere."""
+    if _observer is not None:
+        _observe("broadcast")
     return [x.to(d, non_blocking=True) for d in mesh.devices]
 
 
 def to_lead(xs, mesh: Mesh) -> list:
+    if _observer is not None:
+        _observe("to_lead")
     return [x.to(mesh.lead, non_blocking=True) for x in xs]
 
 
 def reduce_lead(op, xs, mesh: Mesh) -> torch.Tensor:
     """op over every shard's value, in shard order, on the lead device."""
+    if _observer is not None:
+        _observe("reduce_lead")
     return functools.reduce(op, to_lead(xs, mesh))
 
 
@@ -176,23 +210,33 @@ def _reduce(op, xs, mesh: Mesh, axes=None) -> list:
 def psum(xs, mesh: Mesh, axes=None) -> list:
     """The shards' values summed in shard order over `axes` (default
     every axis), on every shard."""
+    if _observer is not None:
+        _observe("psum")
     return _reduce(torch.add, xs, mesh, axes)
 
 
 def pmax(xs, mesh: Mesh, axes=None) -> list:
+    if _observer is not None:
+        _observe("pmax")
     return _reduce(torch.maximum, xs, mesh, axes)
 
 
 def pmin(xs, mesh: Mesh) -> list:
+    if _observer is not None:
+        _observe("pmin")
     return _reduce(torch.minimum, xs, mesh)
 
 
 def all_gather(xs, mesh: Mesh) -> list:
     """[D, ...] stack of the shards' values in shard order, on every shard."""
+    if _observer is not None:
+        _observe("all_gather")
     return broadcast(torch.stack(to_lead(xs, mesh)), mesh)
 
 
 def gather_cat(xs, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     """The shards' values concatenated along `dim` on the lead device: the
     dense array, so a reduction over it is bitwise the dense reduction."""
+    if _observer is not None:
+        _observe("gather_cat")
     return torch.cat(to_lead(xs, mesh), dim=dim)
