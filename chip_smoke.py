@@ -178,10 +178,21 @@ Phases; the first failure exits non-zero and no result line is printed:
    delta cycles, the learned scorer, the sidecar with --mesh-hosts 2; the
    learned scorer's dp x node training step against the dense step (loss,
    parameters, ms, peak memory);
-23. the kernels line (with the launches of phases 2c and 12-22), then
+23. the port's bench (run_bench): bench.main(["--device", "cuda"]) in
+   this process, the reference bench's default mode: the deployed-default,
+   weighted multi-scorer and headline engine rows at the reference's sizes
+   (10,000 nodes with images, 16,384 pods, windows of 512; BENCH_REPS
+   timed calls, not 12) and the host-loop block with BENCH_LOOP_CUTS;
+   K1-K4's launches and the seconds of each row; the backend line first
+   and no other diag, exit 0, the headline last, every row held to the
+   reference smoke test's assertions (check_bench_rows); then suite_rate
+   over gpu-10kx10k (the greedy oracle launches K4); each engine row's
+   first untimed call, and the suite's first auction and greedy call,
+   equal to the same call on the plain versions;
+24. the kernels line (with the launches of phases 2c and 12-23), then
    the result line.
 
-Phases 7-22 print their seconds. Timed runs are medians of 3; equality
+Phases 7-23 print their seconds. Timed runs are medians of 3; equality
 runs are one each (phase 11 reports its one run's time).
 
 Needs torch with CUDA, grpc and protobuf, and nothing of JAX.
@@ -203,6 +214,11 @@ alone, each mesh over the first four cards in place of cuda:0 repeated
 (make_mesh(4), make_mesh_multihost(2, 2), the dp x node grid over
 cuda:0-3, the sidecars' --device cuda), so every copy between shards
 crosses cards; the same checks hold. Its last line is the result line.
+
+    python3 chip_smoke.py --bench
+
+builds the kernels and runs phase 23 alone, with the same checks; its
+last line is the result line.
 """
 
 from __future__ import annotations
@@ -213,10 +229,12 @@ import ctypes
 import importlib.util
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import urllib.parse
 from pathlib import Path
@@ -3732,13 +3750,318 @@ def run_mesh_cards(torch, port, snap, pods) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 23: the port's bench. The engine rows and the suite's gpu config
+# run at the reference's full sizes (bench.py's defaults: 10,000 nodes,
+# 16,384 pods, windows of 512) with fewer timed calls; the host-loop
+# block's sizes are cut so the phase stays near 150 s (each cut below,
+# the bench's default beside it).
+BENCH_REPS = 3                       # BENCH_REPS: 12
+BENCH_LOOP_CUTS = {
+    # 4,000 nodes. From 2,000 nodes on, the drift row's warm-up grows the
+    # hostPort table once (a "port-churn" rebuild), which the reference
+    # smoke test's assertions forbid; the reference's bench does the same
+    # there (tests/test_torch_bench_rows.py::
+    # test_torch_bench_drift_rebuilds_at_2000_nodes_e2e)
+    "BENCH_LOOP_NODES": "1000",
+    "BENCH_LOOP_PODS": "2048",       # 8,192 pods a backlog
+    "BENCH_LOOP_SAMPLES": "3",       # >= 10 measured cycles a row
+    # 100,000 nodes; not 10,000, whose scheduling_throughput_10000nodes
+    # row would share the headline's name
+    "BENCH_SHARDED_NODES": "20000",
+    "BENCH_SHARDED_PODS": "8192",    # 50,000 pods
+    "BENCH_DRIFT_ROUNDS": "6",       # 12 rounds
+    "BENCH_SCENARIO_INTENSITY": "0.25",  # 1.0
+}
+BENCH_SUITE_CONFIG = "gpu-10kx10k"
+# the kernels the bench's path runs: K1 (every fused row), K3 (every
+# auction round of a selector-free window), K4 (the suite's greedy
+# oracle). K2 runs only under normalizer="min_max", which no bench row
+# asks for (the reference's rows pass "none", or schedule_windows'
+# default "none"), so it launches 0 times here.
+BENCH_KERNELS = ("masked_score", "auction_bid", "greedy_scan")
+
+
+def _need(cond, what, row=None) -> None:
+    if not cond:
+        raise AssertionError(f"{what}: {row}" if row is not None else what)
+
+
+def check_bench_rows(metrics: dict, *, nodes, loop_nodes: int, sharded_nodes: int,
+                     mesh_devices: int) -> None:
+    """The assertions tests/test_bench_smoke.py makes of the reference
+    bench's rows, on the port's rows ({metric: row}) at the given knobs
+    (BENCH_NODES, or None without the engine rows; BENCH_LOOP_NODES;
+    BENCH_SHARDED_NODES); the mesh is `mesh_devices` shards, not 8.
+    Raises AssertionError naming the first row that fails."""
+    ln, sn = loop_nodes, sharded_nodes
+    sn_thr = sn - sn % mesh_devices  # _sharded_throughput keeps it mesh-divisible
+    want = [
+        f"host_loop_{ln}nodes", f"host_loop_{ln}nodes_deep16w",
+        f"host_loop_{ln}nodes_pipelined", f"host_loop_{ln}nodes_fused",
+        f"host_loop_{ln}nodes_resident", f"host_loop_{ln}nodes_streaming",
+        f"host_loop_{ln}nodes_idle_streaming", f"host_loop_{ln}nodes_streaming_drift",
+        f"host_loop_{sn}nodes", f"host_loop_{sn}nodes_streaming",
+        f"host_loop_{max(sharded_nodes // 10, 8)}nodes_sharded_ref",
+        f"scheduling_throughput_{sn_thr}nodes",
+        *(f"host_loop_{ln}nodes_replicas{n}" for n in (1, 2, 4)),
+        f"host_loop_{ln}nodes_replicas1_shared", f"host_loop_{ln}nodes_replicas4_shared",
+        f"host_loop_{ln}nodes_replicas", f"host_loop_{ln}nodes_replay",
+        f"host_loop_{ln}nodes_shadow", f"host_loop_{ln}nodes_telemetry",
+        f"host_loop_{ln}nodes_attribution", f"scenario_burst_{ln}nodes",
+        f"scenario_gang_{ln}nodes", f"host_loop_{ln}nodes_chaos",
+    ]
+    if nodes is not None:
+        want += [f"scheduling_throughput_{nodes}nodes{s}"
+                 for s in ("", "_deployed_default", "_weighted_multi_scorer")]
+    for name in want:
+        _need(name in metrics, f"row {name} missing", sorted(metrics))
+    if nodes is not None:
+        for s in ("", "_deployed_default", "_weighted_multi_scorer"):
+            row = metrics[f"scheduling_throughput_{nodes}nodes{s}"]
+            _need(row["value"] > 0 and row["vs_baseline"] > 0, "engine row", row)
+    h = f"host_loop_{ln}nodes"
+    for name in (h, f"{h}_pipelined", f"{h}_resident"):
+        _need(metrics[name]["pods_bound"] > 0 and metrics[name]["cycle_p50_ms"] > 0,
+              name, metrics[name])
+    pipe = metrics[f"{h}_pipelined"]
+    _need("host_overlap_p50_ms" in pipe and "pipeline_flushes" in pipe, "pipelined", pipe)
+    fus = metrics[f"{h}_fused"]
+    _need(fus["pods_bound"] > 0 and fus["unfused_pods_per_sec"] > 0
+          and "fused_engine_speedup" in fus and "fused_cycle_speedup" in fus
+          and fus["fallback_cycles"] == 0, "fused", fus)
+    res = metrics[f"{h}_resident"]
+    _need(res["delta_uploads"] > 0 and res["fallback_cycles"] == 0
+          and 0.0 < res["delta_hit_rate"] <= 1.0 and res["snapshot_upload_bytes"] > 0
+          and res["delta_bytes_saved"] > 0, "resident", res)
+    st = metrics[f"{h}_streaming"]
+    _need(st["pods_bound"] > 0 and st["fallback_cycles"] == 0 and st["delta_uploads"] > 0
+          and st["mirror_verify_failures"] == 0 and st["mirror_events_per_cycle"] > 0
+          and st["mirror_full_rebuilds"] <= 2 and "streaming_stage_speedup" in st
+          and st["baseline_pods_per_sec"] > 0 and st["cycle_slo_ms"] == 50.0
+          and st["slo_breaches"] >= 0, "streaming", st)
+    idle = metrics[f"{h}_idle_streaming"]
+    _need(idle["idle_zero_row_deltas"] is True and idle["events_per_cycle"] == 0
+          and idle["mirror_emit_idle_p50_ms"] >= 0 and idle["trigger_latency_p50_ms"] < 500,
+          "idle_streaming", idle)
+    drift = metrics[f"{h}_streaming_drift"]
+    ext, rounds = drift["mirror_incremental_extensions"], drift["drift_rounds"]
+    _need(drift["pods_bound"] > 0 and ext.get("selector", 0) >= rounds - 4
+          and ext.get("port-remap", 0) >= rounds - 4 and drift["drift_rebuilds"] <= 4
+          and drift["mirror_rebuild_reasons"].get("port-churn", 0) == 0
+          and drift["mirror_verify_failures"] == 0 and drift["final_verify_ok"] is True,
+          "streaming_drift", drift)
+    for name in (f"host_loop_{sn}nodes", f"host_loop_{sn}nodes_streaming"):
+        sha = metrics[name]
+        _need(sha["pods_bound"] > 0 and sha["fallback_cycles"] == 0
+              and sha["mesh_devices"] == mesh_devices and sha["sharded_cycles"] == sha["cycles"]
+              and sha["delta_uploads"] > 0 and sha["shard_delta_bytes_per_cycle"] > 0,
+              name, sha)
+    sha = metrics[f"host_loop_{sn}nodes"]
+    _need(sha["ref_shard_delta_bytes_per_cycle"] > 0 and sha["flat_bytes_ratio"] > 0,
+          "sharded flat bytes", sha)
+    _need(metrics[f"host_loop_{sn}nodes_streaming"]["mirror_verify_failures"] == 0,
+          "sharded streaming", metrics[f"host_loop_{sn}nodes_streaming"])
+    ref = metrics[f"host_loop_{max(sharded_nodes // 10, 8)}nodes_sharded_ref"]
+    _need(ref["pods_bound"] > 0 and ref["fallback_cycles"] == 0, "sharded_ref", ref)
+    thr = metrics[f"scheduling_throughput_{sn_thr}nodes"]
+    _need(thr["mesh_devices"] == mesh_devices and thr["assigned"] > 0 and thr["value"] > 0,
+          "sharded throughput", thr)
+    for n in (1, 2, 4):
+        row = metrics[f"{h}_replicas{n}"]
+        _need(row["pods_bound"] > 0 and row["double_binds"] == 0
+              and len(row["binds_per_replica"]) == n, f"replicas{n}", row)
+    r4 = metrics[f"{h}_replicas4"]
+    _need(len(set(r4["binds_per_replica"].values())) == 1, "replicas4 balance", r4)
+    head = metrics[f"{h}_replicas"]
+    _need(head["double_binds"] == 0 and head["pods_lost"] == 0
+          and head["bind_conflicts"] == head["storm_overlap_pods"]
+          and head["pods_discarded"] == head["storm_overlap_pods"]
+          and head["requeue_latency_count"] == head["bind_conflicts"]
+          and head["requeue_latency_mean_ms"] > 0
+          and head["scaling_x_2"] > 0 and head["scaling_x_4"] > 0, "replicas", head)
+    for n in (1, 4):
+        row = metrics[f"{h}_replicas{n}_shared"]
+        _need(row["pods_bound"] > 0 and row["double_binds"] == 0
+              and sum(row["uploads"].values()) >= 1 and row["upload_bytes_vs_private"] < 1.0,
+              f"replicas{n}_shared", row)
+    s4 = metrics[f"{h}_replicas4_shared"]
+    _need(s4["coalesced_dispatches"] > 0 and s4["dispatches_per_round"] < 4
+          and "scaling_x_4" in s4, "replicas4_shared", s4)
+    _need(head["shared_storm_double_binds"] == 0 and head["shared_storm_pods_lost"] == 0
+          and head["shared_storm_bind_conflicts"] > 0
+          and head["shared_storm_dispatches_per_tick"] < 2, "shared storm", head)
+    rep = metrics[f"{h}_replay"]
+    _need(rep["binding_diffs"] == 0 and rep["cycles_replayed"] > 0 and rep["pods_replayed"] > 0
+          and rep["traced_pods_per_sec"] > 0 and "trace_overhead_pct" in rep
+          and rep["trace_bytes"] > 0, "replay", rep)
+    sh = metrics[f"{h}_shadow"]
+    _need(sh["records_rescored"] > 0 and sh["bindings_changed"] == 0
+          and sh["divergence_ratio"] == 0.0 and sh["shadow_pods_per_sec"] > 0
+          and sh["breaker_state"] == "closed", "shadow", sh)
+    tel = metrics[f"{h}_telemetry"]
+    _need(tel["pods_bound"] > 0 and tel["spans_written"] > 0 and tel["span_bytes"] > 0
+          and tel["spans_dropped"] == 0 and tel["metrics_scrapes"] > 0
+          and "telemetry_overhead_pct" in tel, "telemetry", tel)
+    att = metrics[f"{h}_attribution"]
+    _need(att["cycles"] > 0 and att["cycle_p50_ms"] > 0
+          and "engine_step" in att["attribution_pct"]
+          and abs(sum(att["attribution_pct"].values()) - 100.0) < 0.5
+          and att["stage_p50_ms"]["engine_step"] > 0, "attribution", att)
+    for name in (f"scenario_burst_{ln}nodes", f"scenario_gang_{ln}nodes"):
+        _need(metrics[name]["pods_bound"] > 0 and metrics[name]["fallback_cycles"] == 0,
+              name, metrics[name])
+    gang = metrics[f"scenario_gang_{ln}nodes"]
+    _need(gang["gangs_admitted"] > 0 and 0.0 < gang["gang_admit_rate"] <= 1.0, "gang", gang)
+    chaos = metrics[f"{h}_chaos"]
+    _need(chaos["pods_bound"] > 0 and chaos["faults_injected"]
+          and 0 < chaos["degraded_cycles"] < chaos["cycles"]
+          and chaos["breaker_transitions"].get("open", 0) >= 1
+          and chaos["breaker_transitions"].get("closed", 0) >= 1
+          and chaos["breaker_state"] == "closed" and chaos["recovery_episodes"] > 0
+          and chaos["unrecovered_episodes"] == 0 and chaos["recovery_latency_ms_p99"] > 0
+          and chaos["recovered"] is True, "chaos", chaos)
+
+
+def run_bench(torch, port, dev) -> dict:
+    """Phase 23: the port's bench in this process, so the launch counts
+    can be read. bench.main(["--device", "cuda"]) runs the default mode
+    (the three engine rows at the reference's sizes with BENCH_REPS
+    timed calls, the host-loop block at BENCH_LOOP_CUTS) with each
+    engine row and each host-loop row counted on its own (the counts set
+    to 0 just before the row, read just after); then one suite_rate over
+    BENCH_SUITE_CONFIG (its greedy oracle is K4's launch on this path).
+    Fails on an exit other than 0, any diag line but the backend line,
+    a missing row, a row that fails check_bench_rows, and a first
+    untimed call of an engine row or of the suite (its auction and its
+    greedy oracle) that differs from the same call on the plain
+    versions. Returns {row: launches}."""
+    bench, engine = port["bench"], port["engine_module"]
+    launches: dict = {}
+    seconds: dict = {}
+    first: dict = {}  # (row, assigner) -> the first call's (args, kw, out)
+    engine_row, host_loop_rows = bench.engine_row, bench.host_loop_rows
+    schedule_windows = engine.schedule_windows
+
+    @contextlib.contextmanager
+    def recording(row):
+        """engine.schedule_windows, for the block, keeps each assigner's
+        first call in `first` (the bench imports it at call time)."""
+        def record(*a, **kw):
+            out = schedule_windows(*a, **kw)
+            first.setdefault((row, kw.get("assigner")), (a, kw, out))
+            return out
+
+        engine.schedule_windows = record
+        try:
+            yield
+        finally:
+            engine.schedule_windows = schedule_windows
+
+    def counted_engine_row(suffix, *a, **kw):
+        t0 = time.perf_counter()
+        with recording(f"scheduling_throughput_{bench.N_NODES}nodes{suffix}"):
+            row, counts = counted(torch, port, lambda: engine_row(suffix, *a, **kw))
+        launches[row["metric"]] = counts
+        seconds[row["metric"]] = time.perf_counter() - t0
+        return row
+
+    def counted_loop_rows(**kw):
+        rows = host_loop_rows(**kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                group, counts = counted(torch, port, lambda: next(rows))
+            except StopIteration:
+                return
+            launches[group["metric"]] = counts
+            seconds[group["metric"]] = time.perf_counter() - t0
+            yield group
+
+    saved = {k: os.environ.get(k) for k in BENCH_LOOP_CUTS}
+    out = io.StringIO()
+    try:
+        os.environ.update(BENCH_LOOP_CUTS)
+        bench.REPS = BENCH_REPS
+        bench.engine_row, bench.host_loop_rows = counted_engine_row, counted_loop_rows
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--device", "cuda"])
+        main_s = time.perf_counter() - t0
+    finally:
+        bench.engine_row, bench.host_loop_rows = engine_row, host_loop_rows
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = [json.loads(x) for x in out.getvalue().splitlines() if x.startswith("{")]
+    if rc != 0:
+        fail(f"bench exited {rc}: {lines[-3:]}")
+    if not lines or lines[0].get("diag") != "backend" or lines[0].get("platform") != "gpu":
+        fail(f"bench's first line is not the card's backend line: {lines[:1]}")
+    diags = [x for x in lines[1:] if "diag" in x]
+    if diags:
+        fail(f"bench printed diag lines: {diags}")
+    rows = {x["metric"]: x for x in lines[1:]}
+    if len(rows) != len(lines) - 1:
+        fail(f"bench printed {len(lines) - 1} rows under {len(rows)} names")
+    headline = f"scheduling_throughput_{bench.N_NODES}nodes"
+    if lines[-1].get("metric") != headline:
+        fail(f"bench's last row is not {headline}: {lines[-1]}")
+    try:
+        check_bench_rows(rows, nodes=bench.N_NODES,
+                         loop_nodes=int(BENCH_LOOP_CUTS["BENCH_LOOP_NODES"]),
+                         sharded_nodes=int(BENCH_LOOP_CUTS["BENCH_SHARDED_NODES"]),
+                         mesh_devices=port["parallel"].sharded_device_count())
+    except AssertionError as e:
+        fail(f"bench row: {e}")
+    for name, row in rows.items():
+        emit({"phase": "bench_row", "row": row, "seconds": seconds.get(name),
+              "launches": launches.get(name)})
+    emit({"phase": "bench_main", "rows": len(rows), "seconds": main_s,
+          "reps": BENCH_REPS, "cuts": BENCH_LOOP_CUTS,
+          "threads_after": threading.active_count()})
+    # one suite config at full size
+    t0 = time.perf_counter()
+    with recording(f"suite/{BENCH_SUITE_CONFIG}"):
+        suite, launches[f"suite/{BENCH_SUITE_CONFIG}"] = counted(
+            torch, port, lambda: bench.suite_rate(BENCH_SUITE_CONFIG, device=dev)
+        )
+    emit({"phase": "bench_suite", "row": suite, "seconds": time.perf_counter() - t0,
+          "launches": launches[f"suite/{BENCH_SUITE_CONFIG}"]})
+    if suite["assigned"] <= 0 or suite["assigned_greedy"] <= 0:
+        fail(f"bench suite row placed nothing: {suite}")
+    # each engine row's first untimed call and the suite's first auction
+    # and greedy call against the same call on the plain versions (the
+    # plain runs launch no kernel and lie outside every count)
+    want = {(f"scheduling_throughput_{bench.N_NODES}nodes{s}", "auction")
+            for s in ("", "_deployed_default", "_weighted_multi_scorer")}
+    want |= {(f"suite/{BENCH_SUITE_CONFIG}", a) for a in ("auction", "greedy")}
+    if set(first) != want:
+        fail(f"bench: first calls recorded {sorted(first)}, not {sorted(want)}")
+    t0 = time.perf_counter()
+    for (row, assigner), (a, kw, out) in sorted(first.items()):
+        check_equal(torch, f"bench {row} {assigner} first call", out,
+                    schedule_windows(*a, **kw, _plain=True))
+    emit({"phase": "bench_first_calls", "equal_to_plain": sorted(f"{r} {a}" for r, a in first),
+          "seconds": time.perf_counter() - t0})
+    first.clear()
+    total = {k: sum(c[k] for c in launches.values()) for k in port["fused"].launches}
+    missing = [k for k in BENCH_KERNELS if total[k] == 0]
+    if missing:
+        fail(f"bench: kernels never launched: {missing} ({total})")
+    emit({"phase": "bench_launches", "total": total})
+    return launches
+
+
 def load_port() -> dict:
     """The port's functions the phases call, by name (a CPU rehearsal
     passes its own dict); fails when the port is not importable or
     imports jax."""
     try:
         from kubernetes_scheduler_tpu_torch import TorchEngine, stack_windows
-        from kubernetes_scheduler_tpu_torch import parallel
+        from kubernetes_scheduler_tpu_torch import bench, parallel
+        from kubernetes_scheduler_tpu_torch import engine as engine_module
         from kubernetes_scheduler_tpu_torch.bridge import server
         from kubernetes_scheduler_tpu_torch.bridge.client import RemoteEngine
         from kubernetes_scheduler_tpu_torch.bridge.server import make_server
@@ -3759,6 +4082,7 @@ def load_port() -> dict:
             make_snapshot,
             preempt_on_host,
             schedule_batch,
+            schedule_windows,
             snapshot_nbytes,
         )
         from kubernetes_scheduler_tpu_torch.host.observe import SHIPPED_SPANS
@@ -3809,6 +4133,7 @@ def load_port() -> dict:
         fail("jax was imported")
     port = dict(
         TorchEngine=TorchEngine, stack_windows=stack_windows, fused=fused,
+        engine_module=engine_module,
         compute_free_capacity=compute_free_capacity, NEG=NEG,
         fused_score_operands=fused_score_operands, auction_values=auction_values,
         alpha_beta=alpha_beta, gen_cluster=gen_cluster, gen_pods=gen_pods,
@@ -3834,6 +4159,7 @@ def load_port() -> dict:
         KubeBinder=KubeBinder, to_host=to_host, learned=learned, parallel=parallel,
         server=server, compute_scores=compute_scores,
         kernel_budget=kernel_budget, contracts=contracts, spmd_mutants=spmd_mutants,
+        bench=bench, schedule_windows=schedule_windows,
     )
     return port
 
@@ -3929,6 +4255,8 @@ def main() -> None:
     ap.add_argument("--mesh-cards", action="store_true",
                     help="run phases 20-22 alone with each mesh over the first "
                          f"{MESH_SHARDS} cards")
+    ap.add_argument("--bench", action="store_true",
+                    help="run phase 23 (the port's bench) alone")
     args = ap.parse_args()
     try:
         import torch
@@ -3967,6 +4295,12 @@ def main() -> None:
     snap, pods = gen_config("gpu-10kx10k", seed=0, device=dev)
     if args.mesh_cards:
         run_mesh_cards(torch, port, snap, pods)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return
+    if args.bench:
+        t0 = time.perf_counter()
+        run_bench(torch, port, dev)
+        emit({"phase": "bench_seconds", "seconds": time.perf_counter() - t0})
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
         return
 
@@ -4078,7 +4412,12 @@ def main() -> None:
             server.stop(grace=None)
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 23. the kernels line and the result ----------------------------
+    # ---- 23. the port's bench ------------------------------------------------
+    t0 = time.perf_counter()
+    bench_launches = run_bench(torch, port, dev)
+    emit({"phase": "bench_seconds", "seconds": time.perf_counter() - t0})
+
+    # ---- 24. the kernels line and the result ----------------------------
     kernels = []
     for name, lines in results.items():
         main_line = next(x for x in lines if x["case"] == MAIN_CASE[name])
@@ -4107,6 +4446,7 @@ def main() -> None:
             "learned_launches": launches_of(learned_launches, name),
             "mesh_launches": launches_of(mesh_launches, name),
             "mesh_2d_launches": launches_of(mesh2d_launches, name),
+            "bench_launches": launches_of(bench_launches, name),
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -23,8 +23,9 @@ builds TorchEngine(device=--device), cuda by default, which raises
 without CUDA; policy "learned" (`--learned-checkpoint`) builds the
 LearnedEngine and `sharded_engine` the ShardedEngine there instead
 (host.scheduler.default_engine), and `sidecar --mesh-devices N
-[--mesh-hosts H]` serves the sharded programs. `bench` is not ported yet and exits 2 naming
-ROADMAP queue A item 11.
+[--mesh-hosts H]` serves the sharded programs. `bench` runs the port's
+benchmark (kubernetes_scheduler_tpu_torch/bench.py) in its default mode on
+--device.
 """
 
 from __future__ import annotations
@@ -41,11 +42,6 @@ import numpy as np
 from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
 
 log = logging.getLogger("yoda_tpu.cli")
-
-BENCH_NOT_PORTED = (
-    "the port's bench is not written yet: ROADMAP queue A, item 11 (the "
-    "bench)"
-)
 
 
 def _engine(args, cfg: SchedulerConfig | None = None):
@@ -544,7 +540,11 @@ def cmd_sidecar(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(BENCH_NOT_PORTED)
+    """The benchmark's default mode (the engine rows and the host-loop
+    block) on --device; its exit code."""
+    from kubernetes_scheduler_tpu_torch import bench
+
+    return bench.main(["--device", args.device])
 
 
 def cmd_trace(args) -> int:
@@ -992,9 +992,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pc.set_defaults(fn=cmd_sidecar)
 
-    pb = sub.add_parser(
-        "bench", help="the throughput benchmark (not ported yet: exits 2)"
-    )
+    pb = sub.add_parser("bench", help="run the throughput benchmark")
+    _add_device_flag(pb)
     pb.set_defaults(fn=cmd_bench)
 
     pt = sub.add_parser(
@@ -1311,11 +1310,7 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGTERM, _terminate)
     except ValueError:
         pass  # not the main thread (embedded use): skip
-    try:
-        return args.fn(args)
-    except NotImplementedError as e:
-        print(f"yoda-tpu {args.cmd}: {e}", file=sys.stderr)
-        return 2
+    return args.fn(args)
 
 
 if __name__ == "__main__":

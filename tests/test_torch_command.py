@@ -1,8 +1,8 @@
 """The port's CLI (kubernetes_scheduler_tpu_torch.cli) and the modules
 behind it: every test of tests/test_cli.py against the port's modules
 (with --device cpu where a command builds an engine), the commands the
-reference's CLI has beyond them (trace, scenario, shadow, spans), the
-options the port refuses, and `scheduler --source kube` through both
+reference's CLI has beyond them (trace, scenario, shadow, spans), `bench`
+on the CPU and without a card, and `scheduler --source kube` through both
 packages' CLIs on the same fake API server, which must POST the same
 bindings."""
 
@@ -11,11 +11,12 @@ import json
 import pytest
 
 import chip_smoke
-from kubernetes_scheduler_tpu_torch import register
+from kubernetes_scheduler_tpu_torch import bench, register
 from kubernetes_scheduler_tpu_torch.cli import build_parser, main
 from kubernetes_scheduler_tpu_torch.host.plugins import ScalarYodaPlugin
 from kubernetes_scheduler_tpu_torch.sim.host_gen import gen_host_cluster, gen_host_pods
 from tests import fake_kube
+from tests.test_torch_bench import smoke_knobs
 
 CPU = ["--device", "cpu"]
 
@@ -101,16 +102,21 @@ def test_torch_command_defaults_to_cuda():
     """Every command that builds an engine defaults to --device cuda."""
     parser = build_parser()
     for argv in (["scheduler"], ["sidecar"], ["trace", "replay", "j"],
-                 ["scenario", "run", "burst"], ["shadow", "j"]):
+                 ["scenario", "run", "burst"], ["shadow", "j"], ["bench"]):
         assert parser.parse_args(argv).device == "cuda", argv
 
 
-def test_torch_command_refuses_unported_options(capsys, tmp_path):
-    """bench exits 2 naming ROADMAP queue A item 11; the learned scorer
-    (untrained, and from a checkpoint) and the sharded engine now
-    schedule on --device cpu, every pod placed or counted."""
-    assert main(["bench"]) == 2
-    assert "item 11" in capsys.readouterr().err
+def test_torch_command_runs_bench_and_every_engine(monkeypatch, capsys, tmp_path):
+    """bench on --device cpu at the smoke knobs exits 0, the backend line
+    first and the headline row last; the learned scorer (untrained, and
+    from a checkpoint) and the sharded engine schedule on --device cpu,
+    every pod placed or counted."""
+    smoke_knobs(monkeypatch)
+    assert main(["bench", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert lines[0]["diag"] == "backend" and lines[0]["platform"] == "cpu", lines[0]
+    assert lines[-1]["metric"] == "scheduling_throughput_64nodes"
+    assert not any("diag" in x for x in lines[1:])
     from kubernetes_scheduler_tpu_torch.models.learned import init_train_state, save_checkpoint
 
     ckpt = tmp_path / "ckpt"
@@ -128,6 +134,19 @@ def test_torch_command_refuses_unported_options(capsys, tmp_path):
         out = last_json(capsys)
         assert out["pods_bound"] > 0 and out["fallback_cycles"] == 0, (extra, out)
         assert out["pods_bound"] + out["pods_unschedulable"] == 24, (extra, out)
+
+
+def test_torch_command_bench_without_a_card_measures_nothing(monkeypatch, capsys):
+    """bench without --device cpu on a machine whose probe finds no card:
+    exit 1, one backend_init_failed line and no metric row."""
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setattr(bench, "engine_row", None)  # never reached
+    assert main(["bench"]) == 1
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1, out
+    line = json.loads(out[0])
+    assert line["diag"] == "backend_init_failed" and line["device_count"] == 0, line
+    assert "metric" not in line
 
 
 def test_torch_shipped_manifest_host_options_parse(monkeypatch):
