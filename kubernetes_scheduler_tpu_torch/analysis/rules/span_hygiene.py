@@ -19,7 +19,8 @@ family, applied to the span layer. Checked in every in-scope file:
   flagged (a removed stage silently zeroes the budget row and every
   `spans diff` baseline that references it). Registry checks only run
   when a SHIPPED_SPANS declaration is in scope (fixture files carry
-  their own).
+  their own). A `*NAME` element includes the string tuple assigned to
+  NAME in the same file (the port's PORT_SPANS).
 
 Emission sites the rule understands (the package's only span surfaces):
 `<x>._span("name", ...)` (Scheduler's per-cycle helper),
@@ -65,6 +66,35 @@ def _emitted_name(call: ast.Call) -> str | None:
     return None
 
 
+def _string_tuples(nodes) -> dict:
+    """{NAME: [(element node, string)]} of every `NAME = (...)` tuple or
+    list assignment among `nodes`, string elements only."""
+    out: dict = {}
+    for node in nodes:
+        if isinstance(node, ast.Assign) and isinstance(
+            node.value, (ast.Tuple, ast.List)
+        ):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = [
+                        (el, _const_str(el)) for el in node.value.elts
+                        if _const_str(el) is not None
+                    ]
+    return out
+
+
+def _elements(elts, tuples: dict) -> list:
+    """(node, string) per registry element, `*NAME` expanded through
+    `tuples`."""
+    out = []
+    for el in elts:
+        if isinstance(el, ast.Starred) and isinstance(el.value, ast.Name):
+            out.extend(tuples.get(el.value.id, ()))
+        else:
+            out.append((el, _const_str(el)))
+    return out
+
+
 def check(ctx: Context) -> list[Violation]:
     out: list[Violation] = []
     # name -> (path, line) of the first emission site
@@ -73,7 +103,9 @@ def check(ctx: Context) -> list[Violation]:
     registries: list[tuple] = []
 
     for sf in ctx.scoped(SCOPE):
-        for node in dataflow.get_index(ctx).walk(sf):
+        nodes = list(dataflow.get_index(ctx).walk(sf))
+        tuples = _string_tuples(nodes)
+        for node in nodes:
             if isinstance(node, ast.Assign):
                 for t in node.targets:
                     if (
@@ -83,8 +115,7 @@ def check(ctx: Context) -> list[Violation]:
                     ):
                         names = []
                         seen: set[str] = set()
-                        for el in node.value.elts:
-                            s = _const_str(el)
+                        for el, s in _elements(node.value.elts, tuples):
                             if s is None:
                                 continue
                             if s in seen:

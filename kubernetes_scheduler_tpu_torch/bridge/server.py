@@ -512,11 +512,15 @@ class EngineService:
         knobs = {k: pin[k] for k in ("auction_rounds", "auction_price_frac")}
         return {**knobs, **kw, **fixed}
 
-    def _run(self, call, tid: int | None):
+    def _run(self, call, tid: int | None, spans=None):
         """One engine call under the device lock (and under the profiler
         when armed, unless tid is None); the result comes back to the
-        host with ONE device.to_host read, inside the timed section."""
-        with self._device_lock:
+        host with ONE device.to_host read, inside the timed section.
+        `spans`, the RPC's SpanSet, is published to the engine
+        (observe.engine_trace) for its window and auction spans."""
+        from kubernetes_scheduler_tpu_torch.host.observe import engine_trace
+
+        with self._device_lock, engine_trace(spans):
             res = call() if tid is None else self._maybe_profile(call, tid)
             return type(res)(*to_host(*res))
 
@@ -553,7 +557,7 @@ class EngineService:
             kw = self._pin(request, context, kw)
             res = self._run(
                 lambda: self._engine.schedule_batch(snapshot, pods, **kw),
-                tid,
+                tid, ss,
             )
         except ValueError as e:  # unknown policy/assigner/normalizer
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
@@ -611,7 +615,7 @@ class EngineService:
             kw = self._pin(request, context, kw)
             res = self._run(
                 lambda: self._engine.schedule_windows(snapshot, pods_w, **kw),
-                tid,
+                tid, ss,
             )
         except ValueError as e:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))

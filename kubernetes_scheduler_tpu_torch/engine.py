@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import os
 import tempfile
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -87,6 +88,7 @@ from kubernetes_scheduler_tpu_torch.ops.stats import (
     DISK_IO_DIVISOR,
     utilization_stats,
 )
+from kubernetes_scheduler_tpu_torch.trace.engine_context import ENGINE_TRACE
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 
@@ -959,7 +961,25 @@ def finish_cycle(
     )
 
 
-def schedule_batch(
+def schedule_batch(snapshot: SnapshotArrays, pods: PodBatch, **options) -> ScheduleResult:
+    """One scheduling cycle for the whole pending window, on the device
+    the tensors live on (reference: engine.schedule_batch): _schedule_batch
+    with `options`, which documents them. With a cycle's SpanSet published
+    through ENGINE_TRACE (trace/engine_context), the call is one
+    `engine_window` span."""
+    trace = ENGINE_TRACE.get()
+    if trace is None or trace.spans is None:
+        return _schedule_batch(snapshot, pods, **options)
+    t0 = time.perf_counter()
+    res = _schedule_batch(snapshot, pods, **options)
+    trace.spans.add(
+        "engine_window", t0, time.perf_counter(),
+        pods=int(pods.request.shape[0]), window=0,
+    )
+    return res
+
+
+def _schedule_batch(
     snapshot: SnapshotArrays,
     pods: PodBatch,
     *,
@@ -975,9 +995,8 @@ def schedule_batch(
     layout=None,
     _plain: bool = False,
 ) -> ScheduleResult:
-    """One scheduling cycle for the whole pending window, on the device
-    the tensors live on (reference: engine.schedule_batch; the defaults
-    are the reference's).
+    """schedule_batch's cycle, spanless (schedule_windows runs it once a
+    window); the options' defaults are the reference's.
 
     fused=True: K2 and K1 build the masked score matrix (policy
     balanced_cpu_diskio, normalizer "none" or "min_max", else ValueError);
@@ -1099,11 +1118,17 @@ def run_windows_scan(snapshot, pods_windows, cycle_fn) -> WindowsResult:
     """The capacity- and domain-count-carrying loop over stacked windows
     (reference: engine.run_windows_scan's lax.scan): each window is
     scheduled against the requested capacity and counts the previous
-    windows left behind."""
+    windows left behind. With a cycle's SpanSet published through
+    ENGINE_TRACE (trace/engine_context), each window is one
+    `engine_window` span."""
+    trace = ENGINE_TRACE.get()
+    spans = None if trace is None else trace.spans
     requested = snapshot.requested
     domain_counts, avoid_counts = snapshot.domain_counts, snapshot.avoid_counts
     node_idx, counts = [], []
     for w in range(pods_windows.request.shape[0]):
+        if spans is not None:
+            t_w = time.perf_counter()
         window = PodBatch(*[f[w] for f in pods_windows])
         snap = snapshot._replace(
             requested=requested, domain_counts=domain_counts,
@@ -1116,6 +1141,11 @@ def run_windows_scan(snapshot, pods_windows, cycle_fn) -> WindowsResult:
         requested = snapshot.allocatable - res.free_after
         node_idx.append(res.node_idx)
         counts.append(res.n_assigned)
+        if spans is not None:
+            spans.add(
+                "engine_window", t_w, time.perf_counter(),
+                pods=int(window.request.shape[0]), window=w,
+            )
     return WindowsResult(
         node_idx=torch.stack(node_idx),
         free_after=snapshot.allocatable - requested,
@@ -1153,7 +1183,7 @@ def schedule_windows(
         raise ValueError("layout requires fused=True (the kernels' resident node operands)")
 
     def cycle(snap, window):
-        return schedule_batch(
+        return _schedule_batch(
             snap, window, policy=policy, assigner=assigner,
             normalizer=normalizer, fused=fused, affinity_aware=affinity_aware,
             soft=soft, auction_rounds=auction_rounds,

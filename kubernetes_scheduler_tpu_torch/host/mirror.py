@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 
 import numpy as np
 
@@ -181,6 +182,10 @@ class SnapshotMirror:
         # ship a full upload even though the mirror never rebuilt
         self._force_full_upload = False
         self._emits = 0
+        # pod events coalesced into `pod_events` burst spans
+        # (observe.PodEventBursts), set by a Scheduler with spans on;
+        # None keeps apply_pod_event untimed
+        self.bursts = None
         # exported beside the scheduler's collectors (SHIPPED_METRICS)
         self.ctr_events = Counter(
             "events_applied_total",
@@ -392,15 +397,33 @@ class SnapshotMirror:
         """A running-set change: BOUND/ADDED/MODIFIED adds or replaces
         the pod, DELETED removes it. Dedup is by scheduling key AND
         object identity, so the scheduler's own post-bind self-apply and
-        the informer's later echo of the same Pod object coalesce."""
+        the informer's later echo of the same Pod object coalesce. With
+        `bursts` set, each event is timed from the call, the wait for the
+        mirror's lock included, to the update's end."""
+        bursts = self.bursts
+        if bursts is None:
+            changed = self._apply_pod_event(etype, pod)
+        else:
+            t0 = time.perf_counter()
+            with self._lock:
+                t_in = time.perf_counter()
+                changed = self._apply_pod_event(etype, pod)
+            bursts.event(t0, time.perf_counter(), t_in - t0, etype == "DELETED")
+        if changed:
+            self._notify()
+
+    def _apply_pod_event(self, etype: str, pod) -> bool:
+        """apply_pod_event's update; False when the event changed
+        nothing (mirror not seeded, an unknown deletion, a self-apply
+        echo)."""
         with self._lock:
             if not self.seeded:
-                return
+                return False
             key = _pod_key(pod)
             if etype == "DELETED":
                 old = self._running_keys.pop(key, None)
                 if old is None:
-                    return
+                    return False
                 self.ctr_events.inc(kind="pod")
                 self.running = [p for p in self.running if p is not old]
                 lst = self._by_node.get(old.node_name)
@@ -416,7 +439,7 @@ class SnapshotMirror:
             else:
                 existing = self._running_keys.get(key)
                 if existing is pod:
-                    return  # self-apply echo (same object): no-op
+                    return False  # self-apply echo (same object): no-op
                 self.ctr_events.inc(kind="pod")
                 if existing is not None:
                     # replace = remove + add (keeps row math exact)
@@ -435,8 +458,7 @@ class SnapshotMirror:
                             self._mark_flush("selector-drift")
                 if pod.node_name is None:
                     self._running_keys.pop(key, None)
-                    self._notify()
-                    return
+                    return True
                 # absorb selector drift BEFORE the pod joins the running
                 # set: the extension's new-column fill scans running, and
                 # _apply_pod_add below counts this pod once against the
@@ -480,7 +502,7 @@ class SnapshotMirror:
                         self._mark_flush("layout-drift")
                     else:
                         self._apply_pod_add(pod)
-        self._notify()
+        return True
 
     def apply_util_events(self, changed: dict) -> None:
         """{node name: NodeUtil} for CHANGED nodes only (the advisor

@@ -18,9 +18,13 @@ BASELINE.json:
 - `SpanRecorder`: per-cycle structured spans with a monotonically-
   assigned trace id, emitted as Chrome-trace-event JSON to a rotating,
   disk-budgeted directory (trace/spans.py).
+- `ENGINE_TRACE` / `engine_trace`: the handle through which a cycle's
+  open SpanSet reaches the engine's window loop and the auction, and
+  the auction's round count comes back; `PodEventBursts`: the snapshot
+  mirror's pod events coalesced into burst spans.
 - `profile_device_step`: wraps one engine call in a torch.profiler trace
-  (kernels, memcpys and host ops on one timeline) — armed on demand
-  through /debug/profile?cycles=N.
+  (kernels, memcpys and host ops on one timeline), shifted onto the span
+  files' clock — armed on demand through /debug/profile?cycles=N.
 
 Metric-name contract: every exported name carries a HELP entry, ends in
 a unit (or `_total`) suffix, and is pinned in SHIPPED_METRICS —
@@ -39,9 +43,29 @@ import os
 import threading
 import time
 
+# the engine's handle on the cycle's spans, re-exported beside SpanSet
+# (under trace/ so that the engine and the auction need not import this
+# module)
+from kubernetes_scheduler_tpu_torch.trace.engine_context import (  # noqa: F401
+    ENGINE_TRACE,
+    EngineTrace,
+    engine_trace,
+)
+
 log = logging.getLogger("yoda_tpu.observe")
 
 PREFIX = "yoda_tpu"
+
+# the process's one wall/perf anchor: every SpanRecorder and every device
+# profile maps perf_counter onto epoch microseconds through it, so span
+# files and profiles written by one process share a timeline
+_WALL0 = time.time()
+_PERF0 = time.perf_counter()
+
+
+def epoch_us(t_perf: float) -> float:
+    """A perf_counter reading as epoch microseconds (the span clock)."""
+    return (_WALL0 + (t_perf - _PERF0)) * 1e6
 
 
 def _quantile(sorted_vals: list[float], q: float) -> float:
@@ -218,7 +242,8 @@ _HELP = {
     "spans_written_total": "Span events written to the Chrome-trace files",
     "span_bytes_total": "Bytes written to the Chrome-trace span files",
     "spans_dropped_total": (
-        "Cycle span sets the recorder failed to encode/write "
+        "Cycle span sets the recorder failed to encode/write, and "
+        "pod_events bursts dropped while waiting for a cycle "
         "(the scheduling loop never pays for these)"
     ),
     # resilience layer (host/resilience.py; sim/faults.py chaos runs)
@@ -340,6 +365,12 @@ SHIPPED_METRICS = (
     "shadow_score_delta_mean",
     "shadow_lag_seconds",
     "shadow_candidate_step_duration_seconds",
+    # the auction's rounds by bid head (`head`: k3 / affinity), counted
+    # on the host (ops/assign.auction_assign through ENGINE_TRACE), and
+    # the pods left in the scheduling queue at each cycle's pop (the
+    # counterpart of kube-scheduler's scheduler_pending_pods)
+    "auction_rounds_total",
+    "pending_pods_count",
 )
 
 
@@ -521,11 +552,28 @@ class Gauge:
 # ---- per-cycle spans (Chrome trace events, merged across the bridge) ------
 
 
+# spans only the port emits: inside the snapshot mirror, the engine's
+# window loop and the auction. They nest inside `engine_step` or fall
+# between cycles, so `spans report` gives them percentiles and no
+# attribution row (trace/analyze.NON_ATTRIBUTED_STAGES).
+PORT_SPANS = (
+    # a burst of pod events applied to the snapshot mirror
+    # (host/mirror.apply_pod_event; args events, deleted, lock_wait_s)
+    "pod_events",
+    # one window of engine.schedule_windows (its schedule_batch and
+    # count fold), or one direct engine.schedule_batch (args pods, window)
+    "engine_window",
+    # the whole of ops/assign.auction_assign (args rounds, head), and
+    # each round's dispatch through the any-bid read
+    "auction",
+    "auction_round",
+)
+
 # every span (stage) name this package has EVER emitted, pinned: span
 # names are a CONTRACT now — `spans report`'s attribution tables,
 # `spans diff`'s regression gate, and Perfetto bookmarks all reference
 # stages by name, so a shipped name is never removed and a new stage is
-# registered consciously. Every name here is the reference's
+# registered consciously. Every name but PORT_SPANS' is the reference's
 # (kubernetes_scheduler_tpu/host/observe.py), so span files of either
 # package feed the same reports.
 SHIPPED_SPANS = (
@@ -559,6 +607,7 @@ SHIPPED_SPANS = (
     # (bindings changed / gangs flipped vs the recorded primary)
     "candidate_step",
     "decision_diff",
+    *PORT_SPANS,
 )
 
 
@@ -587,6 +636,72 @@ class SpanSet:
             self.add(name, t0, time.perf_counter(), **args)
 
 
+# a pod event that starts more than this long after the last one ended
+# opens a new `pod_events` burst
+BURST_GAP_S = 1e-3
+# closed bursts kept between cycles; beyond it the oldest are dropped
+# (and counted into the recorder's spans_dropped at the next drain)
+MAX_PENDING_BURSTS = 1024
+
+
+class PodEventBursts:
+    """The snapshot mirror's pod events coalesced into `pod_events`
+    spans: consecutive events form one burst, which ends at a cycle
+    boundary (`cut`) or when the next event starts more than
+    BURST_GAP_S after the last one ended. Closed bursts wait here until
+    the Scheduler drains them into the cycle SpanSet it flushes next.
+    Fed from the informer thread and the scheduling thread alike."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        # the open burst: [t0, t1, events, deleted, lock_wait_s]
+        self._open: list | None = None
+        self._closed = SpanSet(0)
+        # bursts dropped at MAX_PENDING_BURSTS since the last drain
+        self._dropped = 0
+
+    def event(self, t0: float, t1: float, lock_wait: float, deleted: bool) -> None:
+        """One applied event, from its call to its return; `lock_wait`
+        of it spent waiting for the mirror's lock."""
+        with self._lock:
+            b = self._open
+            if b is not None and t0 - b[1] <= BURST_GAP_S:
+                b[1] = t1
+                b[2] += 1
+                b[3] += deleted
+                b[4] += lock_wait
+                return
+            if b is not None:
+                self._close()
+            self._open = [t0, t1, 1, int(deleted), lock_wait]
+
+    def _close(self) -> None:
+        # graftlint: disable=lock-discipline -- called only from event and cut, which hold self._lock
+        b, self._open = self._open, None
+        spans = self._closed.spans
+        if len(spans) >= MAX_PENDING_BURSTS:
+            del spans[0]
+            self._dropped += 1
+        self._closed.add(
+            "pod_events", b[0], b[1],
+            events=b[2], deleted=b[3], lock_wait_s=b[4],
+        )
+
+    def cut(self) -> None:
+        """A cycle boundary: close the open burst."""
+        with self._lock:
+            if self._open is not None:
+                self._close()
+
+    def drain(self) -> tuple[list, int]:
+        """The closed bursts, oldest first, as SpanSet entries, and the
+        count of bursts dropped since the last drain; both are reset."""
+        with self._lock:
+            out, self._closed.spans = self._closed.spans, []
+            dropped, self._dropped = self._dropped, 0
+        return out, dropped
+
+
 class SpanRecorder:
     """Monotonic trace ids + Chrome-event encoding over the rotating
     span files (trace/spans.py).
@@ -594,9 +709,10 @@ class SpanRecorder:
     The host assigns ids (`begin()`); the sidecar opens its SpanSets
     under the id it received over gRPC metadata (`begin(trace_id=...)`),
     which is what makes `spans merge` able to join the two timelines.
-    Timestamps are mapped to epoch microseconds through one wall/perf
-    anchor pair taken at construction, so both processes share the wall
-    clock domain without per-span time.time() calls."""
+    Timestamps are mapped to epoch microseconds through the process's
+    one wall/perf anchor (epoch_us), so both processes share the wall
+    clock domain without per-span time.time() calls, and a device
+    profile of the same process lines up under the spans."""
 
     def __init__(
         self,
@@ -616,8 +732,6 @@ class SpanRecorder:
         )
         self.path = path
         self.process = process
-        self._wall0 = time.time()
-        self._perf0 = time.perf_counter()
         self._next_id = 1
         self._id_lock = threading.Lock()
         self.spans_dropped = 0
@@ -638,7 +752,7 @@ class SpanRecorder:
         return SpanSet(trace_id)
 
     def _ts_us(self, t_perf: float) -> float:
-        return (self._wall0 + (t_perf - self._perf0)) * 1e6
+        return epoch_us(t_perf)
 
     def flush(self, ss: SpanSet, *, seq: int | None = None, tid: int = 0) -> None:
         """Encode and write one cycle's spans. Every event carries the
@@ -672,6 +786,12 @@ class SpanRecorder:
             # the sidecar's recorder is shared by concurrent RPC workers
             with self._id_lock:
                 self.spans_dropped += 1
+
+    def count_dropped(self, n: int) -> None:
+        """Count `n` spans lost before they reached flush (pod_events
+        bursts past PodEventBursts' bound) into spans_dropped."""
+        with self._id_lock:
+            self.spans_dropped += n
 
     def close(self) -> None:
         self._writer.close()
@@ -805,20 +925,56 @@ class MetricsExporter(HttpMetricsServer):
         return body
 
 
+# the marker range a device profile opens at a known perf_counter reading
+PROFILE_CLOCK_MARK = "yoda_tpu.clock"
+
+
 def profile_device_step(engine_call, out_dir: str):
     """Run one engine call under torch.profiler, wait for the device, and
     write the call's Chrome trace to <out_dir>/trace.json (kernels, memcpys
-    and host ops on one timeline). Returns the call's result."""
+    and host ops on one timeline). The trace is on the span files' clock:
+    a PROFILE_CLOCK_MARK range opened at a known perf_counter reading ties
+    the profiler's clock to it, and every event is shifted onto epoch_us,
+    so the dump lines up under its cycle's spans. Returns the call's
+    result."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        with record_function(PROFILE_CLOCK_MARK):
+            t_mark = time.perf_counter()
         result = engine_call()
         if cuda:
             # graftlint: disable=host-sync -- profiling needs the device barrier; never on the cycle path
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _shift_profile(path, epoch_us(t_mark))
     return result
+
+
+def _shift_profile(path: str, mark_us: float) -> None:
+    """Rewrite the Chrome trace at `path` so its clock marker starts at
+    `mark_us` (epoch microseconds); every timestamped event moves with it."""
+    with open(path, encoding="utf-8") as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    marks = [
+        float(ev["ts"]) for ev in events
+        if ev.get("name") == PROFILE_CLOCK_MARK and "ts" in ev
+    ]
+    if not marks:
+        log.warning("profile: %s lacks the clock marker; left unshifted", path)
+        return
+    shift = mark_us - min(marks)
+    for ev in events:
+        if "ts" in ev:
+            ev["ts"] = float(ev["ts"]) + shift
+    if "baseTimeNanoseconds" in trace:
+        # the timestamps are absolute now
+        trace["baseTimeNanoseconds"] = 0
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(trace, f)

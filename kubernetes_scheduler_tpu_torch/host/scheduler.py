@@ -32,6 +32,7 @@ import numpy as np
 
 from kubernetes_scheduler_tpu_torch.device import to_host
 from kubernetes_scheduler_tpu_torch.host.advisor import NodeUtil
+from kubernetes_scheduler_tpu_torch.host.observe import engine_trace
 from kubernetes_scheduler_tpu_torch.host.plugins import ScalarYodaPlugin, scalar_schedule_one
 from kubernetes_scheduler_tpu_torch.host.queue import (
     break_gang,
@@ -182,6 +183,12 @@ class CycleMetrics:
     gangs_admitted: int = 0
     gangs_deferred: int = 0
     gang_pods_masked: int = 0
+    # the auction's rounds over this cycle's engine calls (host counts,
+    # ops/assign.auction_assign through observe.ENGINE_TRACE; 0 on the
+    # greedy assigner and the scalar path), and the pods left in the
+    # scheduling queue once the cycle popped its window
+    auction_rounds: int = 0
+    queue_pending: int = 0
 
 
 @dataclass
@@ -220,6 +227,9 @@ class _InFlight:
     # snapshot/pods/kw references plus, after the force, the node_idx —
     # host numpy only, so holding them costs nothing on the device path
     trace_ctx: dict | None = None
+    # what the engine call reported through observe.ENGINE_TRACE (its
+    # auction rounds), accounted once the result is forced
+    engine_trace: object = None
 
 
 class _PendingCycle:
@@ -548,11 +558,22 @@ class Scheduler:
                 max_bytes=config.span_max_bytes,
                 process="host",
             )
+        # with spans on, the mirror's pod events coalesce into
+        # `pod_events` bursts, drained into each cycle's span set
+        self._bursts = None
+        if self.spans is not None and self.mirror is not None:
+            from kubernetes_scheduler_tpu_torch.host.observe import PodEventBursts
+
+            self._bursts = self.mirror.bursts = PodEventBursts()
         # labeled Prometheus collectors, rendered by MetricsExporter
         # beside the legacy quantile gauges: real histograms (bucketed,
         # labeled by loop path) instead of window quantiles, and the
         # upload counter the resident-state dashboards key on
-        from kubernetes_scheduler_tpu_torch.host.observe import Counter, Histogram
+        from kubernetes_scheduler_tpu_torch.host.observe import (
+            Counter,
+            Gauge,
+            Histogram,
+        )
 
         self.hist_cycle = Histogram(
             "cycle_duration_seconds",
@@ -580,9 +601,20 @@ class Scheduler:
             "Cycles that blew the configured cycle_slo_ms latency budget",
             labels=("path",),
         )
+        self.ctr_rounds = Counter(
+            "auction_rounds_total",
+            "Auction rounds the engine ran, by bid head (k3: kernel K3; "
+            "affinity: the per-round affinity masks)",
+            labels=("head",),
+        )
+        self.gauge_pending = Gauge(
+            "pending_pods_count",
+            "Pods left in the scheduling queue at the latest cycle's pop",
+        )
         self.prom_collectors = (
             self.hist_cycle, self.hist_engine, self.ctr_uploads,
-            self.ctr_shard_bytes, self.ctr_slo,
+            self.ctr_shard_bytes, self.ctr_slo, self.ctr_rounds,
+            self.gauge_pending,
         ) + (self.mirror.collectors if self.mirror is not None else ())
         # SLO watchdog state (config.cycle_slo_ms): run totals, the last
         # breach's identity (trace id + flight-recorder seq — the two
@@ -994,10 +1026,15 @@ class Scheduler:
         self._cycle_span = (
             self.spans.begin() if self.spans is not None else None
         )
+        if self._bursts is not None:
+            # no pod_events burst spans a cycle's start
+            self._bursts.cut()
         t_pop = time.perf_counter()
         if window is None:
             window = self.queue.pop_window(self._window_cap())
         m.pods_in = len(window)
+        m.queue_pending = len(self.queue)
+        self.gauge_pending.set(m.queue_pending)
         if not window:
             # empty cycles (backoff waits, idle polls) are not recorded:
             # a serve-forever loop would otherwise grow self.metrics
@@ -1006,7 +1043,7 @@ class Scheduler:
             self._cycle_span = None
             m.cycle_seconds = time.perf_counter() - t0
             return None
-        self._span("queue_pop", t_pop)
+        self._span("queue_pop", t_pop, pending=m.queue_pending)
 
         # gang admission control BEFORE any state fetch: gangs short of
         # members (or too big to ever fit a window) defer as a unit —
@@ -1408,6 +1445,14 @@ class Scheduler:
         if sp is None:
             return
         self._cycle_span = None
+        if self._bursts is not None:
+            # the mirror's bursts since the last flush: those between
+            # cycles and this cycle's own (the self-apply of its binds)
+            self._bursts.cut()
+            bursts, dropped = self._bursts.drain()
+            sp.spans.extend(bursts)
+            if dropped:
+                self.spans.count_dropped(dropped)
         sp.add(
             "cycle",
             t0,
@@ -1731,33 +1776,44 @@ class Scheduler:
                 "pods": pods_batch, "kw": kw,
             }
             self._trace_cycle.append(tctx)
-        infl = self._dispatch_resident(
-            snapshot, pods_batch, kw, ephemeral=ephemeral, use_async=use_async,
-            tctx=tctx, mirror_delta=mirror_delta,
-        )
-        if infl is not None:
-            infl.trace_ctx = tctx
-            return infl
-        t_eng = time.perf_counter()
-        submit = (
-            getattr(self.engine, "schedule_batch_async", None)
-            if use_async
-            else None
-        )
-        if submit is not None:
-            handle = submit(snapshot, pods_batch, **kw)
-        else:
-            # serial mode, and engines without the async surface:
-            # synchronous dispatch (the pipeline still interleaves
-            # correctly around it, with no overlap)
-            from kubernetes_scheduler_tpu_torch.engine import PendingSchedule
-
-            handle = PendingSchedule(
-                self.engine.schedule_batch(snapshot, pods_batch, **kw)
+        with engine_trace(self._cycle_span) as et:
+            infl = self._dispatch_resident(
+                snapshot, pods_batch, kw, ephemeral=ephemeral,
+                use_async=use_async, tctx=tctx, mirror_delta=mirror_delta,
             )
+            if infl is not None:
+                infl.trace_ctx = tctx
+                infl.engine_trace = et
+                return infl
+            t_eng = time.perf_counter()
+            submit = (
+                getattr(self.engine, "schedule_batch_async", None)
+                if use_async
+                else None
+            )
+            if submit is not None:
+                handle = submit(snapshot, pods_batch, **kw)
+            else:
+                # serial mode, and engines without the async surface:
+                # synchronous dispatch (the pipeline still interleaves
+                # correctly around it, with no overlap)
+                from kubernetes_scheduler_tpu_torch.engine import PendingSchedule
+
+                handle = PendingSchedule(
+                    self.engine.schedule_batch(snapshot, pods_batch, **kw)
+                )
         return _InFlight(
             handle=handle, pods_batch=pods_batch, t_eng=t_eng, trace_ctx=tctx,
+            engine_trace=et,
         )
+
+    def _count_rounds(self, m: CycleMetrics, trace) -> None:
+        """Account the auction rounds an engine call reported through
+        observe.ENGINE_TRACE (none for an engine that runs no auction in
+        this process: the greedy assigner, a sidecar, the sharded mesh)."""
+        if trace is not None and trace.auction_rounds:
+            m.auction_rounds += trace.auction_rounds
+            self.ctr_rounds.inc(trace.auction_rounds, head=trace.head)
 
     def _set_engine_trace_id(self) -> None:
         """Hand the cycle's trace id + predicted flight-recorder seq to
@@ -1857,6 +1913,7 @@ class Scheduler:
         idx = to_host(res.node_idx)
         t_done = time.perf_counter()
         m.engine_seconds += t_done - infl.t_eng
+        self._count_rounds(m, infl.engine_trace)
         self._span(
             "engine_step", infl.t_eng, t_done,
             resident=infl.resident, delta=infl.delta_sent,
@@ -2697,13 +2754,15 @@ class Scheduler:
                 "pods": pods_batch, "kw": kw, "batch_window": bw,
             }
             self._trace_cycle.append(tctx)
-        res, t_eng = self._dispatch_windows(
-            snapshot, windows, kw, m, ephemeral=ephemeral, tctx=tctx,
-            mirror_delta=mirror_delta,
-        )
+        with engine_trace(self._cycle_span) as et:
+            res, t_eng = self._dispatch_windows(
+                snapshot, windows, kw, m, ephemeral=ephemeral, tctx=tctx,
+                mirror_delta=mirror_delta,
+            )
         idx = to_host(res.node_idx).reshape(-1)
         t_done = time.perf_counter()
         m.engine_seconds += t_done - t_eng
+        self._count_rounds(m, et)
         self._span("engine_step", t_eng, t_done, backlog=True)
         if (
             idx.shape[0] < len(window)

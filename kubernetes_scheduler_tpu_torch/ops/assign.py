@@ -17,16 +17,20 @@ the price-guided parallel auction, and the in-window inter-pod
 
 Both return -1 for pods that fit nowhere. Neither reads the device from
 the host per pod; the auction reads one any-bid flag every CHECK_EVERY
-rounds.
+rounds. Under a published ENGINE_TRACE (trace/engine_context) the
+auction counts its rounds there and, with spans on, adds an `auction`
+span and one `auction_round` span a round.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
 from kubernetes_scheduler_tpu_torch.ops.normalize import F32_MAX
+from kubernetes_scheduler_tpu_torch.trace.engine_context import ENGINE_TRACE
 
 NEG = -1.0e30
 
@@ -560,9 +564,18 @@ def auction_assign(
 
     `_plain=True` routes the bid head through K3's plain PyTorch version
     on any device (for holding the kernel path against it on the card).
+
+    Under a published ENGINE_TRACE (trace/engine_context) the rounds
+    run (the host loop's count, no device read) are added to its
+    `auction_rounds`, with the bid head ("k3" or "affinity") as its
+    `head`; with a SpanSet there, the call is one `auction` span and
+    each round one `auction_round` span, from the top of the round to
+    the end of its any-bid read.
     """
     from kubernetes_scheduler_tpu_torch.ops.fused import auction_bid
 
+    trace = ENGINE_TRACE.get()
+    spans = None if trace is None else trace.spans
     p, n = scores.shape
     dev = scores.device
     sj = auction_values(scores, feasible, price_frac)
@@ -579,7 +592,15 @@ def auction_assign(
         prio_key = p - rank
         added = torch.zeros_like(affinity.domain_counts)
         added_avoid = torch.zeros_like(affinity.domain_counts)
+    # each round's start, with spans on; a round ends where the next
+    # starts, the last where the loop exits
+    starts = None
+    if spans is not None:
+        starts, t_auction = [], time.perf_counter()
+    rnd = -1
     for rnd in range(rounds):
+        if starts is not None:
+            starts.append(time.perf_counter())
         active = pod_mask & (assigned < 0)
         if affinity is None:
             bid, has_bid = auction_bid(sj, price, active, req, free, _plain=_plain)
@@ -608,6 +629,15 @@ def auction_assign(
         # graftlint: disable=host-transfer -- the auction's exit test: one flag read every CHECK_EVERY rounds, the host loop's only read per round block
         if (rnd + 1) % CHECK_EVERY == 0 and not bool(has_bid.any()):
             break
+    if trace is not None:
+        head = "k3" if affinity is None else "affinity"
+        trace.auction_rounds += rnd + 1
+        trace.head = head
+        if spans is not None:
+            t_end = time.perf_counter()
+            for t0, t1 in zip(starts, starts[1:] + [t_end]):
+                spans.add("auction_round", t0, t1)
+            spans.add("auction", t_auction, t_end, rounds=rnd + 1, head=head)
     return AssignResult(
         node_idx=assigned,
         free_after=free,

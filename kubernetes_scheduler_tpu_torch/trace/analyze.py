@@ -23,8 +23,11 @@ deliberately NOT in the table — it runs CONCURRENTLY with the in-flight
 engine step (it is the pipelined loop's hidden work, not a cycle
 cost), and counting it would double-book the overlap window. Sidecar
 stages (deserialize/device_step/serialize/delta_apply) nest inside
-`engine_step` on the other side of the bridge; they get percentiles but
-never attribution rows, for the same no-double-counting reason.
+`engine_step` on the other side of the bridge, and the port's engine
+stages (engine_window/auction/auction_round) inside it on this side;
+they get percentiles but never attribution rows, for the same
+no-double-counting reason. So do the port's `pod_events` bursts, which
+fall between cycles or inside a cycle's residual ("other").
 """
 
 from __future__ import annotations
@@ -54,13 +57,19 @@ ATTRIBUTION_STAGES = (
     "reconstruct",
 )
 # reported (percentiles) but never attributed: concurrent with the
-# engine step, or nested inside it across the bridge
+# engine step, nested inside it (across the bridge, or the port's
+# engine_window / auction / auction_round), or between cycles (the
+# port's pod_events bursts)
 NON_ATTRIBUTED_STAGES = (
     "host_overlap",
     "deserialize",
     "delta_apply",
     "device_step",
     "serialize",
+    "pod_events",
+    "engine_window",
+    "auction",
+    "auction_round",
 )
 
 

@@ -33,7 +33,7 @@ from kubernetes_scheduler_tpu.trace import inspect as ref_inspect
 from kubernetes_scheduler_tpu.trace import recorder as ref_recorder
 from kubernetes_scheduler_tpu.trace import replay as ref_replay
 from kubernetes_scheduler_tpu_torch import TorchEngine
-from kubernetes_scheduler_tpu_torch.host.observe import SHIPPED_SPANS
+from kubernetes_scheduler_tpu_torch.host.observe import PORT_SPANS, SHIPPED_SPANS
 from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler
 from kubernetes_scheduler_tpu_torch.sim.host_gen import gen_host_cluster, gen_host_pods
 from kubernetes_scheduler_tpu_torch.trace import analyze as tanalyze
@@ -379,10 +379,11 @@ def test_torch_trace_spans_feed_the_report(tmp_path):
     """The port's Scheduler with span_path writes one span set a cycle,
     every stage shipped, each set cross-linked to its journal seq; the
     report's attribution sums to 100; a replay re-emits one cycle span a
-    record; the registry is the reference's."""
+    record; the registry is the reference's plus the port-only names."""
     from kubernetes_scheduler_tpu.host.observe import SHIPPED_SPANS as REF_SPANS
 
-    assert SHIPPED_SPANS == REF_SPANS
+    assert set(REF_SPANS) <= set(SHIPPED_SPANS)
+    assert set(SHIPPED_SPANS) - set(REF_SPANS) == set(PORT_SPANS)
     spans = str(tmp_path / "spans")
     _, sched = record_workload(tmp_path / "journal", n_pods=60, span_path=spans,
                                resident_state=True, pipeline_depth=1)
