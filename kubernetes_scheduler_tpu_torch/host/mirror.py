@@ -151,10 +151,22 @@ class SnapshotMirror:
         self._lock = threading.RLock()
         self.seeded = False
         self.nodes: list = []
-        self.running: list = []
         self.utils: dict = {}
-        self._running_keys: dict[str, object] = {}
+        # the running set: pods in insertion order under a per-insertion
+        # sequence number (removal is O(1)), each scheduling key's
+        # number, and the list `running` hands out — None once a pod has
+        # left, until the next read rebuilds it from the store
+        self._store: dict[int, object] = {}
+        self._seq_of: dict[str, int] = {}
+        self._next_seq = 0
+        self._running_list: list | None = []
+        # a seeded list that repeats a key: a removal then also drops
+        # every other copy of the pod, as a filter by identity would
+        self._seed_dups = False
+        # each node's pods in running order, and their request rows as
+        # one float32 byte string in the same order
         self._by_node: dict[str, list] = {}
+        self._node_rows: dict[str, bytes] = {}
         self._flush = True
         self._flush_reason = "seed"
         self._leaves: dict[str, np.ndarray] = {}
@@ -212,9 +224,14 @@ class SnapshotMirror:
             "under a remapped same-width port table)",
             labels=("kind",),
         )
+        self.ctr_running_rebuilds = Counter(
+            "mirror_running_rebuilds_total",
+            "Rebuilds of the running list from the mirror's store: one "
+            "at the first read after pods left the running set",
+        )
         self.collectors = (
             self.ctr_events, self.ctr_rebuilds, self.ctr_verify_failures,
-            self.ctr_extensions,
+            self.ctr_extensions, self.ctr_running_rebuilds,
         )
 
     # -- seeding / state -------------------------------------------------
@@ -224,26 +241,71 @@ class SnapshotMirror:
         emit() flush-builds the arrays; events apply from now on."""
         with self._lock:
             self.nodes = list(nodes)
-            self.running = list(running)
+            running = list(running)
+            self._running_list = running
+            self._store = dict(enumerate(running))
+            self._next_seq = len(running)
+            self._seq_of = {_pod_key(p): i for i, p in enumerate(running)}
+            self._seed_dups = len(self._seq_of) != len(running)
             self.utils = dict(utils)
-            self._running_keys = {_pod_key(p): p for p in self.running}
             self._rebuild_by_node()
             self._mark_flush("seed")
             self.seeded = True
+
+    @property
+    def running(self) -> list:
+        """The running pods in insertion order. The same list object,
+        appended in place, until a pod leaves the running set; the first
+        read after that builds a new one from the store, under the lock
+        (mirror_running_rebuilds_total)."""
+        with self._lock:
+            lst = self._running_list
+            if lst is None:
+                lst = self._running_list = list(self._store.values())
+                self.ctr_running_rebuilds.inc()
+            return lst
 
     def state(self) -> tuple[list, list, dict]:
         """(nodes, running, utils) by REFERENCE — the running list stays
         the same (append-only between removals) object so the builder's
         prefix-identity caches hold across flush rebuilds."""
-        return self.nodes, self.running, self.utils  # graftlint: disable=thread-race -- intended bulk-sync read: the cycle adopts these references at a flush boundary while event writes serialize under self._lock; tearing only stales one cycle and the flush path rebuilds from scratch
+        return self.nodes, self.running, self.utils  # graftlint: disable=thread-race -- intended bulk-sync read: the running list is built under self._lock; the cycle adopts the node list and utils by reference at a flush boundary while event writes serialize under self._lock; tearing only stales one cycle and the flush path rebuilds from scratch
+
+    def _drop_running(self, key: str):
+        """Take the pod under `key` out of the running set and out of its
+        node's pods and request rows; returns it, or None when the key is
+        unknown."""
+        with self._lock:
+            seq = self._seq_of.pop(key, None)
+            if seq is None:
+                return None
+            old = self._store.pop(seq)
+            if self._seed_dups:
+                for s in [s for s, p in self._store.items() if p is old]:
+                    del self._store[s]
+            self._running_list = None
+            lst = self._by_node.get(old.node_name)
+            if lst is not None:
+                rows = self._node_rows[old.node_name]
+                w = 4 * len(self._names_t)  # a float32 row's bytes
+                for j in reversed([j for j, p in enumerate(lst) if p is old]):
+                    del lst[j]
+                    rows = rows[: j * w] + rows[(j + 1) * w:]
+                self._node_rows[old.node_name] = rows
+            return old
 
     def _rebuild_by_node(self) -> None:
         with self._lock:
             by_node: dict[str, list] = {}
-            for p in self.running:
+            for p in self._store.values():
                 if p.node_name is not None:
                     by_node.setdefault(p.node_name, []).append(p)
             self._by_node = by_node
+            names_t = self._names_t
+            self._node_rows = {
+                name: b"".join([pod_request_bytes(p, names_t) for p in pods])
+                for name, pods in by_node.items()
+            }
 
     def _mark_flush(self, reason: str) -> None:
         with self._lock:
@@ -421,43 +483,30 @@ class SnapshotMirror:
                 return False
             key = _pod_key(pod)
             if etype == "DELETED":
-                old = self._running_keys.pop(key, None)
+                old = self._drop_running(key)
                 if old is None:
                     return False
                 self.ctr_events.inc(kind="pod")
-                self.running = [p for p in self.running if p is not old]
-                lst = self._by_node.get(old.node_name)
-                if lst is not None:
-                    self._by_node[old.node_name] = [
-                        p for p in lst if p is not old
-                    ]
                 if not self._flush:
                     if self._extend_selectors():
                         self._recompute_node_rows(old.node_name)
                     else:
                         self._mark_flush("selector-drift")
             else:
-                existing = self._running_keys.get(key)
+                seq = self._seq_of.get(key)
+                existing = None if seq is None else self._store[seq]
                 if existing is pod:
                     return False  # self-apply echo (same object): no-op
                 self.ctr_events.inc(kind="pod")
                 if existing is not None:
                     # replace = remove + add (keeps row math exact)
-                    self.running = [
-                        p for p in self.running if p is not existing
-                    ]
-                    lst = self._by_node.get(existing.node_name)
-                    if lst is not None:
-                        self._by_node[existing.node_name] = [
-                            p for p in lst if p is not existing
-                        ]
+                    self._drop_running(key)
                     if not self._flush:
                         if self._extend_selectors():
                             self._recompute_node_rows(existing.node_name)
                         else:
                             self._mark_flush("selector-drift")
                 if pod.node_name is None:
-                    self._running_keys.pop(key, None)
                     return True
                 # absorb selector drift BEFORE the pod joins the running
                 # set: the extension's new-column fill scans running, and
@@ -494,9 +543,16 @@ class SnapshotMirror:
                                 self.builder._selector_id(sc)
                     if not self._extend_selectors():
                         self._mark_flush("layout-drift")
-                self._running_keys[key] = pod
-                self.running.append(pod)
+                seq = self._next_seq
+                self._next_seq = seq + 1
+                self._store[seq] = pod
+                self._seq_of[key] = seq
+                if self._running_list is not None:
+                    self._running_list.append(pod)
                 self._by_node.setdefault(pod.node_name, []).append(pod)
+                self._node_rows[pod.node_name] = self._node_rows.get(
+                    pod.node_name, b""
+                ) + pod_request_bytes(pod, self._names_t)
                 if not self._flush:
                     if not self._pod_compatible(pod):
                         self._mark_flush("layout-drift")
@@ -660,18 +716,24 @@ class SnapshotMirror:
     def _recompute_requested_row(self, i: int, name: str) -> None:
         """The builder's full-rescan contribution to one node row, in
         its phase order: matrix adds for every pod on the node (running-
-        list order), then the pods-column increments, then hostPorts."""
+        list order), then the pods-column increments, then hostPorts.
+        The first two phases are one float32 np.add.accumulate down a
+        zero row, the node's request rows and a 1 in the pods column per
+        pod: a left fold, as the builder's np.add.at is, so the row is
+        bitwise the builder's at any pods per node."""
         with self._lock:
             req = self._writable("requested")
-            req[i, :] = 0.0
             pods_on = self._by_node.get(name, ())
-            for pod in pods_on:
-                req[i, :] += self._request_row(pod)
-            for _ in pods_on:
-                req[i, self._pods_col] += 1.0
+            k = len(pods_on)
+            fold = np.zeros((2 * k + 1, req.shape[1]), np.float32)
+            fold[1 : k + 1] = np.frombuffer(
+                self._node_rows.get(name, b""), np.float32
+            ).reshape(k, req.shape[1])
+            fold[k + 1 :, self._pods_col] = 1.0
+            req[i, :] = np.add.accumulate(fold, axis=0)[-1]
             pidx = self._adopt_ports  # adopt-time mapping (see _pod_compatible)
-            for pod in pods_on:
-                if pod.host_ports:
+            if pidx:  # no port columns: no pod here holds a port
+                for pod in pods_on:
                     for pt in pod.host_ports:
                         req[i, self._port0 + pidx[pt]] += 1
             self._req_dirty.add(i)

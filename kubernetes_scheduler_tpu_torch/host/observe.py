@@ -309,6 +309,9 @@ SHIPPED_METRICS = (
     # layout drifts absorbed in place (selector column fill / hostPort
     # remap) instead of flushing to a full rebuild
     "mirror_incremental_extensions_total",
+    # rebuilds of the mirror's running list from its store (one at the
+    # first read after pods left the running set)
+    "mirror_running_rebuilds_total",
     # mesh-sharded resident engine: routed delta payload per owning
     # shard (host labels shard index; the sharded sidecar's twin does
     # too)
