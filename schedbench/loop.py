@@ -10,11 +10,14 @@ running count (the informer's pod DELETED event into the mirror, and the
 list `list_running_pods` returns).
 
 Everything the reference needs is recorded here as plain arrays: the
-cluster draws, each pod's diskIO, and per cycle the pods bound (with
-their nodes) and the pods deleted. Of the program's arrays only one output
-is kept, for the reference to judge: K1's score matrix
-(ops.fused.masked_score) of the window's last engine window, with the pods
-of its rows in the order the host loop handed them to the engine.
+cluster draws, each pod's diskIO and class, and per cycle the pods bound
+(with their nodes), the pods left unschedulable and the pods deleted. Of
+the program's arrays only one output is kept, for the reference to judge:
+the engine's masked, min-max scaled score matrix of the window's last
+engine window, with the pods of its rows in the order the host loop
+handed them to the engine: the scores and feasibility the engine hands
+its assigner (engine.finish_cycle), NEG where infeasible. Under the live
+policy that is K1's output (ops.fused.masked_score).
 
 The pods a run creates are built before the window (the closed backlog's
 pool), so the window times the program's submit of each, not their
@@ -34,10 +37,12 @@ import numpy as np
 
 from schedbench.gen import traffic as traffic_gen
 from schedbench.gen.cluster import (
+    CARD_METRICS,
     HOSTNAME,
     STREAM_COMPLETIONS,
     PodSource,
     draw_cluster,
+    pod_classes,
     rng,
 )
 
@@ -58,6 +63,8 @@ class CycleRecord:
     bound_pids: np.ndarray   # [b] int64 pods bound by the cycle
     bound_nodes: np.ndarray  # [b] int64 their node indices (-1: unknown name)
     deleted_pids: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    # [u] int64 pods the cycle requeued as unschedulable
+    unsched_pids: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
 
 
 @dataclass
@@ -72,10 +79,11 @@ class Records:
     submitted: int = 0                     # pods created and submitted
     pod_io: np.ndarray | None = None       # [submitted] diskIO by pod id
     pod_init: np.ndarray | None = None     # [submitted] bool: the running pods set-up placed
+    pod_class: np.ndarray | None = None    # [submitted] int64 index into pod.classes
     queued_at_end: int = 0                 # len(queue) once the window closed
     window_submitted: int = 0              # pods submitted inside the window
     pool_short: int = 0                    # pods the window built, the pool spent
-    k1: dict | None = None                 # K1's last window: cycle, window, out, pids
+    k1: dict | None = None                 # the engine's last window: cycle, window, out, pids
     window_t0: float = 0.0
     window_t1: float = 0.0
     seconds: float = 0.0                   # the window's asked length
@@ -118,6 +126,17 @@ class ClusterBinder:
         return pods, pids, nodes
 
 
+def node_cards(types, cluster, i: int) -> list:
+    """The program's types.Card list of node `i` ([] without cards)."""
+    if cluster.cards is None:
+        return []
+    return [
+        types.Card(**dict(zip(CARD_METRICS, map(float, cluster.cards[i, j]))),
+                   health="Healthy" if cluster.card_healthy[i, j] else "Unhealthy")
+        for j in range(cluster.cards.shape[1])
+    ]
+
+
 def _program():
     """The program's host types, imported when a run starts."""
     from kubernetes_scheduler_tpu_torch.host import advisor, scheduler, types
@@ -153,6 +172,7 @@ class CellRun:
                     "memory": float(c.alloc[i, 1]),
                     "pods": float(c.alloc[i, 2]),
                 },
+                cards=node_cards(types, c, i),
             )
             for i, nm in enumerate(c.names)
         ]
@@ -184,6 +204,14 @@ class CellRun:
         self._k1_box = {"out": None, "calls": 0, "pods": None}
         self._k1_last = None
         self._restore = self._capture_k1()
+        self._unsched: list = []
+        self._restore_queue = self._capture_unschedulable()
+        if self.tmpl.get("classes"):
+            self._classes = [
+                (labels, {"cpu": float(req[0]), "memory": float(req[1])})
+                for labels, req in pod_classes(self.tmpl)
+            ]
+            self._make_pod = self._make_class_pod
         self.rec = Records(
             config=config, traffic=traffic, seed=seed, cluster=self.cluster,
             batch_window=self.sched_config.batch_window,
@@ -215,6 +243,14 @@ class CellRun:
             })],
             pod_affinity=aff,
         )
+
+    def _make_class_pod(self, namespace: str):
+        """_make_pod under pod.classes: the pod's class's labels and request."""
+        pod = CellRun._make_pod(self, namespace)
+        labels, requests = self._classes[self.pods.pod_class(self.pods.count - 1)]
+        pod.labels = dict(labels)
+        pod.containers = [self.types.Container(requests=dict(requests))]
+        return pod
 
     def _namespace(self, init: bool) -> str:
         t = self.tmpl
@@ -251,37 +287,55 @@ class CellRun:
             self.rec.stages.append(("schedbench.submit", now, time.perf_counter()))
 
     def _capture_k1(self):
-        """Keep K1's output of each cycle's last engine window and the pods
-        the host loop handed the engine, by wrapping ops.fused.masked_score
-        and the loop's pod-batch builder. Returns the function that undoes
-        the wrapping."""
-        from kubernetes_scheduler_tpu_torch.ops import fused
+        """Keep the engine's scores of each cycle's last engine window and
+        the pods the host loop handed the engine, by wrapping the loop's
+        pod-batch builder and engine.finish_cycle, which receives the
+        scores and feasibility the assigner reads (under the live policy
+        both are K1's output, ops.fused.masked_score); they are kept as
+        they are and masked once the window has closed. Returns the
+        function that undoes the wrapping."""
+        from kubernetes_scheduler_tpu_torch import engine
 
         box = self._k1_box
-        k1 = fused.masked_score
+        finish = engine.finish_cycle
         builder = self.sched.builder
         build = builder.build_pod_batch
 
-        @functools.wraps(k1)
-        def masked_score(*a, **k):
-            out = k1(*a, **k)
-            box["out"] = out
+        @functools.wraps(finish)
+        def finish_cycle(snapshot, pods, raw, norm, feasible, *a, **k):
+            box["out"] = (norm, feasible)
             box["calls"] += 1
-            return out
+            return finish(snapshot, pods, raw, norm, feasible, *a, **k)
 
         @functools.wraps(build)
         def build_pod_batch(pods, *a, **k):
             box["pods"], box["calls"] = list(pods), 0
             return build(pods, *a, **k)
 
-        fused.masked_score = masked_score
+        engine.finish_cycle = finish_cycle
         builder.build_pod_batch = build_pod_batch
 
         def restore():
-            fused.masked_score = k1
+            engine.finish_cycle = finish
             builder.build_pod_batch = build
 
         return restore
+
+    def _capture_unschedulable(self):
+        """Keep the pods each cycle requeues as unschedulable, by wrapping
+        the program's queue's requeue_unschedulable. Returns the function
+        that undoes the wrapping."""
+        queue = self.sched.queue
+        requeue = queue.requeue_unschedulable
+        kept = self._unsched
+
+        @functools.wraps(requeue)
+        def requeue_unschedulable(pod, *a, **k):
+            kept.append(int(pod.name[1:]))
+            return requeue(pod, *a, **k)
+
+        queue.requeue_unschedulable = requeue_unschedulable
+        return lambda: setattr(queue, "requeue_unschedulable", requeue)
 
     def cycle(self, phase: str) -> CycleRecord:
         box = self._k1_box
@@ -290,7 +344,9 @@ class CellRun:
         m = self.sched.run_cycle()
         t1 = time.perf_counter()
         new, pids, nodes = self.binder.take()
-        rec = CycleRecord(phase, t0, t1, m, pids, nodes)
+        rec = CycleRecord(phase, t0, t1, m, pids, nodes,
+                          unsched_pids=np.asarray(self._unsched, np.int64))
+        self._unsched.clear()
         if m.pods_in:
             self.rec.cycles.append(rec)
             if phase == "window" and box["calls"]:
@@ -365,14 +421,20 @@ class CellRun:
         self._pool.clear()
         r.pod_io = self.pods.draws()[: r.submitted]
         r.pod_init = np.arange(r.submitted) < self.hold
+        r.pod_class = self.pods.classes()[: r.submitted]
         if self._k1_last is not None:
-            cycle, window, out, pods = self._k1_last
-            r.k1 = {"cycle": cycle, "window": window, "out": out,
+            import torch
+
+            from schedbench.reference import NEG
+
+            cycle, window, (norm, feasible), pods = self._k1_last
+            r.k1 = {"cycle": cycle, "window": window, "out": torch.where(feasible, norm, NEG),
                     "pids": np.asarray([int(p.name[1:]) for p in pods], np.int64)}
         self._k1_last = None
 
     def close(self) -> None:
         self._restore()
+        self._restore_queue()
         if self.sched.spans is not None:
             self.sched.spans.close()
 

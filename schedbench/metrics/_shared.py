@@ -75,17 +75,6 @@ def _roofline(run, names: tuple, costs: list) -> float | None:
     return 100.0 * least / device_s
 
 
-def stage_share(run, name: str) -> float | None:
-    """Share of the window's wall time in one of the harness's stages, %:
-    each stage clipped to the window, so the last cycle's deletions,
-    which come after the window's close, count only inside it."""
-    rec = run.rec
-    span = rec.window_t1 - rec.window_t0
-    if span <= 0:
-        return None
-    return 100.0 * stage_seconds(rec).get(name, 0.0) / span
-
-
 def stage_seconds(rec) -> dict:
     """{stage name: seconds inside [window_t0, window_t1]} of the
     harness's stages."""

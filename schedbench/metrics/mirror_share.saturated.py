@@ -2,9 +2,9 @@
 informer's pod events take in the program's snapshot mirror, timed by the
 program: its `pod_events` spans (the bursts of events that
 host/mirror.SnapshotMirror.apply_pod_event times), clipped to the window,
-less the time they overlap the program's `cycle` spans. That is
-informer_share.saturated's definition (the events between cycles), timed
-by the program instead of by the harness. The bursts inside a cycle, the
+less the time they overlap the program's `cycle` spans: the events
+between cycles, which the harness's `schedbench.delete` stage holds,
+timed by the program. The bursts inside a cycle, the
 mirror's self-apply of the cycle's binds, are the host loop's. None when
 the run recorded no `pod_events` span."""
 

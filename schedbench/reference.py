@@ -1,9 +1,10 @@
 """The plain reference that decides `correct`: numpy and PyTorch only.
 
 It rebuilds the cluster's state cycle by cycle from the harness's own
-records (the node and pod draws, the bindings the program reported and
-the harness's deletions), never from the program's arrays, and judges
-every binding of the run by what it says:
+records (the node, card and pod draws, each pod's class, the bindings the
+program reported, the pods it left unschedulable and the harness's
+deletions), never from the program's arrays, and judges every binding of
+the run by what it says:
 
 - double_binds: bindings of a pod beyond its first;
 - lost_pods: created pods neither bound nor still in the queue;
@@ -12,47 +13,82 @@ every binding of the run by what it says:
   at a cycle's end, summed over cycles;
 - anti_affinity_breaks: nodes that hold a pod with required anti-affinity
   and another pod its selector matches, at a cycle's end, summed;
+- card_fit_breaks: bindings to a node that fails the pod's GPU-card fit;
 - unplaced_with_room: pods the program left unschedulable in a cycle at
-  whose end some node still had room for them;
-- score_gap: the live policy's score (pkg/yoda/score/algorithm.go:99-119,
-  min-max scaled over the nodes whose resources fit the pod at the
-  cycle's start, a superset of the nodes the program scales over) of the
-  best node that still has room for the pod at the cycle's end, less the
-  score of the node the pod took; the widest over every bound pod. A
-  cycle the engine served is judged by the engine's float32 scores: its
-  auction admits a pod to the node of highest score less price, plus a
-  tie jitter below 1% of the row's range, and a node that still has room
-  at the end never rejected a bid of these pods, so its price stayed 0; a
-  sound run reads below 0.01. A cycle the program's scalar path served
-  (CycleMetrics.used_fallback) is judged by that path's own arithmetic,
-  the Go reference's: the raw score truncated to an integer (algorithm.go
-  :113) and the first node of the highest score taken, one pod after the
-  other; a sound run reads 0 there;
-- k1_score_err: the widest gap, in score points of 0-100, between K1's
-  min-max scaled score (ops.fused.masked_score, the engine's output that
-  the auction reads) and the reference's in float64, over the cells the
-  reference finds feasible, for the last engine window of the measured
-  window: the rows are the pods the host loop handed the engine, in its
-  order, the columns the cluster's nodes in the order the harness lists
-  them; the scale is the program's (max and min over all nodes, the
-  highest floored at 0);
-- k1_mask_errors: cells of that window where K1's feasibility (a score
-  above NEG / 2) differs from the reference's resource fit at the
-  window's start (the cycle's start and the bindings of the cycle's
-  earlier windows); padding rows and columns are never feasible.
+  whose end some node still had room for them (resources, anti-affinity
+  and card fit, per pod class);
+- score_gap: the policy's score (min-max scaled over the nodes that fit
+  the pod, resources and cards, at the cycle's start, a superset of those
+  with room at its end) of the best available node, less the score of
+  the node the pod took; the widest over every bound pod. A node is
+  available to a pod where at the cycle's end it has room for the pod
+  and, for every class of the cycle's pods whose cards fit it, room for
+  a pod of that class's request: the auction rejects a bid only where the
+  pod no longer fits, and a class whose cards do not fit never bids, so
+  such a node never rejected a bid and its price stayed 0 (with one
+  class, every node with room for the pod). A cycle the engine served is
+  judged by the engine's float32 scores: its auction admits a pod to the
+  node of highest score less price, plus a tie jitter below 1% of the
+  row's range; a sound run reads below 0.01. A
+  cycle the program's scalar path served (CycleMetrics.used_fallback)
+  under the live policy is judged by that path's own arithmetic, the Go
+  reference's: the raw score truncated to an integer (algorithm.go:113)
+  and the first node of the highest score taken, one pod after the other;
+  a sound run reads 0 there. Under the card policy such a cycle is judged
+  by the card policy, which the scalar path does not compute;
+- k1_score_err: the widest gap, in score points of 0-100, between the
+  engine's min-max scaled score and the reference's in float64, over the
+  cells the reference finds feasible, for the last engine window of the
+  measured window: the rows are the pods the host loop handed the engine,
+  in its order, the columns the cluster's nodes in the order the harness
+  lists them; the scale is the program's (max and min over all nodes, the
+  highest floored at 0). The engine's scores are those it hands its
+  assigner (engine.finish_cycle), NEG where infeasible: under the live
+  policy K1's output (ops.fused.masked_score), under the card policy,
+  which has no fused kernel, the plain-PyTorch scores; the names stay;
+- k1_mask_errors: cells of that window where the engine's feasibility (a
+  score above NEG / 2) differs from the reference's resource and card fit
+  at the window's start (the cycle's start and the bindings of the
+  cycle's earlier windows); padding rows and columns are never feasible.
 
-The live policy, its min-max and the fit are a frozen copy of the numpy
-per-pod emulation in kubernetes_scheduler_tpu_torch/bench.py (baseline_rate).
-The inputs are taken as the program receives them: node utilisation and
-the diskIO annotations rounded to float32, the arithmetic in float64.
+The policy is the configuration's `scheduler.policy`; any other than
+POLICIES, a `score_plugins` list or a normalizer other than min-max
+raises ValueError (policy_of), so the reference never judges by a formula
+the program was not asked for:
+
+- balanced_cpu_diskio (the live policy): a frozen copy of the numpy
+  per-pod emulation in kubernetes_scheduler_tpu_torch/bench.py
+  (baseline_rate); the inputs taken as the program receives them, node
+  utilisation and the diskIO annotations rounded to float32, the
+  arithmetic in float64.
+- card: pkg/yoda/collection/collection.go:30-76 and
+  pkg/yoda/score/algorithm.go:264-291, per pod class: the maxima of each
+  card metric over the cards that meet the class's memory and clock
+  demand on the nodes that pass its card fit, seeded at 1; then over the
+  cards of each node that meet the demand, the sum of
+  weight * metric * 100 / maximum with weights 1, 1, 2, 1, 3, 1. It
+  follows the port's deployed defaults where they depart from the Go
+  source: the clock is divided by its own maximum, not by the
+  bandwidth's (algorithm.go:283), and the division is float, not
+  integer; the score is computed on every node and min-max scaled over
+  all of them, as the engine scales it.
+
+The card fit (pkg/yoda/filter/filter.go:11-58) is re-implemented in
+numpy: a pod with any of the scv/number, scv/memory and scv/clock labels
+wants scv/number cards (1 without that label; a label that does not
+parse reads 0, as Go's strconv.Atoi with its error dropped); a node fits
+when it has that many cards, that many healthy cards with free memory
+at least scv/memory, and that many healthy cards whose clock equals
+scv/clock. A binding consumes no card, as in the Go source, so the fit
+is static.
 
 `control_check` is the control: the reference put in the program's place
 and computed in bfloat16, the precision below the float32 the
 configuration states. The pods of each engine-served cycle are placed one
 by one on the same start states, each on the node of the best bfloat16
-score with room (score_gap), and K1's last window is scored in bfloat16
-(k1_score_err); its numbers carry the program's names and go through the
-same verdict.
+score with room (score_gap), and the captured window is scored in
+bfloat16 (k1_score_err); its numbers carry the program's names and go
+through the same verdict.
 
 This module imports neither jax, the JAX package, nor the program.
 """
@@ -60,12 +96,13 @@ This module imports neither jax, the JAX package, nor the program.
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from schedbench.gen.cluster import label_match, pod_request
+from schedbench.gen.cluster import CARD_METRICS, label_match, pod_classes
 
 LIMITS_FILE = Path(__file__).resolve().parent / "limits.json"
 # rows of the [pods, nodes] score matrix handled at once
@@ -76,6 +113,14 @@ DISK_IO_DIVISOR = 50.0
 CPU_DIVISOR = 100.0
 # the program's infeasible score; a cell above NEG / 2 is feasible
 NEG = -1.0e30
+LIVE = "balanced_cpu_diskio"
+POLICIES = (LIVE, "card")
+# algorithm.go:264-291's weight of each card metric, in CARD_METRICS order
+CARD_WEIGHTS = (1.0, 1.0, 2.0, 1.0, 3.0, 1.0)
+CARD_LABELS = ("scv/number", "scv/memory", "scv/clock")
+CLOCK = CARD_METRICS.index("clock")
+FREE_MEMORY = CARD_METRICS.index("free_memory")
+_GO_INT = re.compile(r"[+-]?[0-9]+")
 
 
 def limits(config: dict) -> dict:
@@ -86,26 +131,113 @@ def limits(config: dict) -> dict:
     return out
 
 
-class PodClasses:
-    """The pods of one configuration: its template, in the namespace the
-    pod was created in. All pods share the template's request."""
+def policy_of(config: dict) -> str:
+    """The configuration's scheduler.policy, one of POLICIES; ValueError
+    for any other, and for scores that policy alone does not give."""
+    sched = config.get("scheduler", {})
+    policy = sched.get("policy", LIVE)
+    if policy not in POLICIES:
+        raise ValueError(f"the reference judges the policies {POLICIES}, not {policy!r}")
+    if sched.get("score_plugins"):
+        raise ValueError("the reference judges one policy, not score_plugins")
+    if sched.get("normalizer", "min_max") != "min_max":
+        raise ValueError(f"the reference judges min-max scaled scores, not {sched['normalizer']!r}")
+    return policy
 
-    def __init__(self, config: dict):
+
+def go_atoi(s: str) -> int:
+    """strconv.Atoi with its error dropped, as filter.go reads a label: a
+    value that does not parse reads 0."""
+    return int(s) if _GO_INT.fullmatch(s) else 0
+
+
+def card_demand(labels: dict):
+    """(number, memory, clock) that a pod with these labels asks of a
+    node's cards, memory or clock None where no label asks for it; None
+    without any card label (filter.go:11-50)."""
+    if not any(k in labels for k in CARD_LABELS):
+        return None
+    number = go_atoi(labels["scv/number"]) if "scv/number" in labels else 1
+    memory = go_atoi(labels["scv/memory"]) if "scv/memory" in labels else None
+    clock = go_atoi(labels["scv/clock"]) if "scv/clock" in labels else None
+    return number, memory, clock
+
+
+def card_fit(cards: np.ndarray, healthy: np.ndarray, demand) -> np.ndarray:
+    """[n] bool: the nodes whose cards ([n, c, 6], health [n, c]) meet the
+    demand (filter.go:11-58)."""
+    n, c = healthy.shape
+    if demand is None:
+        return np.ones(n, bool)
+    number, memory, clock = demand
+    ok = np.full(n, number <= c)
+    if memory is not None:
+        ok &= (healthy & (cards[..., FREE_MEMORY] >= memory)).sum(1) >= number
+    if clock is not None:
+        ok &= (healthy & (cards[..., CLOCK] == clock)).sum(1) >= number
+    return ok
+
+
+def card_scores(cards: np.ndarray, demand, fit: np.ndarray, dtype=torch.float64,
+                device="cpu") -> torch.Tensor:
+    """[n] the card policy's raw score of one pod class on every node,
+    every operation in `dtype`: the cards that meet the class's memory
+    and clock demand (free memory and clock at least the label's, health
+    not asked, an absent label asking 0) score; each metric's maximum is
+    taken over those cards on the nodes in `fit`, seeded at 1
+    (collection.go:30-76); a node scores the sum over its scoring cards
+    of weight * metric * 100 / maximum (algorithm.go:264-291, the clock
+    by its own maximum, float division)."""
+    n, c = cards.shape[:2]
+    if c == 0:
+        return torch.zeros(n, dtype=dtype, device=device)
+    x = torch.as_tensor(cards, device=device).to(dtype)
+    memory = max(demand[1] or 0, 0) if demand else 0
+    clock = max(demand[2] or 0, 0) if demand else 0
+    meets = (x[..., FREE_MEMORY] >= memory) & (x[..., CLOCK] >= clock)
+    fitting = meets & torch.as_tensor(fit, device=device)[:, None]
+    maxima = torch.clamp(torch.where(fitting[..., None], x, 0.0).amax(dim=(0, 1)), min=1.0)
+    weights = torch.tensor(CARD_WEIGHTS, dtype=dtype, device=device)
+    per_card = (x * 100.0 / maxima * weights).sum(-1)
+    return torch.where(meets, per_card, 0.0).sum(-1)
+
+
+class PodClasses:
+    """The pods of one configuration, per class of pod.classes (the
+    template alone without them): the request, whether the template's
+    anti-affinity selects the class in the namespace of the running pods
+    the cell starts with and in that of later pods, the card demand, and
+    the nodes whose cards meet it."""
+
+    def __init__(self, config: dict, cluster):
         t = config["pod"]
-        self.req = pod_request(t)
         anti = t.get("anti_affinity")
         self.has_anti = anti is not None
-        labels = t.get("labels", {})
+        classes = pod_classes(t)
 
-        def matches(ns: str) -> bool:
+        def matches(labels: dict, ns: str) -> bool:
             if anti is None:
                 return False
             nss = anti.get("namespaces")
             return label_match(labels, anti["match_labels"]) and (nss is None or ns in nss)
 
         init_ns = t.get("init_namespace") or t["namespace"]
-        self.match_init = matches(init_ns)
-        self.match_new = matches(t["namespace"])
+        self.req = np.stack([req for _, req in classes])             # [k, 3] int64
+        self.match_init = np.array([matches(lb, init_ns) for lb, _ in classes])
+        self.match_new = np.array([matches(lb, t["namespace"]) for lb, _ in classes])
+        self.demand = [card_demand(lb) for lb, _ in classes]
+        n = cluster.alloc.shape[0]
+        if cluster.cards is None:
+            self.cards = np.zeros((n, 0, len(CARD_METRICS)))
+            self.healthy = np.zeros((n, 0), bool)
+        else:
+            self.cards, self.healthy = cluster.cards, cluster.card_healthy
+        self.fit = np.stack([card_fit(self.cards, self.healthy, d) for d in self.demand])
+
+    def card_scores(self, device="cpu") -> torch.Tensor:
+        """[k, n] float64 the card policy's raw scores of each class."""
+        return torch.stack([card_scores(self.cards, d, f, device=device)
+                            for d, f in zip(self.demand, self.fit)])
 
 
 class State:
@@ -128,20 +260,28 @@ class State:
 
     def add(self, nodes: np.ndarray, req: np.ndarray, match: np.ndarray,
             anti: bool, sign: int = 1) -> None:
-        np.add.at(self.req, nodes, sign * req[None, :])
+        """Pods onto `nodes` (sign -1: off them); req [b, 3] their requests."""
+        np.add.at(self.req, nodes, sign * req)
         np.add.at(self.match, nodes, sign * match.astype(np.int64))
         if anti:
             np.add.at(self.anti, nodes, sign)
             np.add.at(self.both, nodes, sign * match.astype(np.int64))
 
-    def room(self, req: np.ndarray, match: bool, anti: bool) -> np.ndarray:
-        """[n] bool: a pod of this class fits the node now."""
-        ok = ((self.req + req[None, :]) <= self.alloc).all(1)
+    def room(self, req: np.ndarray, match: bool, anti: bool, fit: np.ndarray) -> np.ndarray:
+        """[n] bool: a pod of this class fits the node now; fit [n] its
+        card fit."""
+        ok = ((self.req + req[None, :]) <= self.alloc).all(1) & fit
         if anti:
             ok &= self.match == 0
         if match:
             ok &= self.anti == 0
         return ok
+
+    def room_all(self, reqs: np.ndarray, fits: np.ndarray) -> np.ndarray:
+        """[n] bool: resources for a pod of each request of reqs [m, 3]
+        whose card fit fits [m, n] holds there."""
+        room = ((self.req[None] + reqs[:, None]) <= self.alloc[None]).all(2)
+        return (room | ~fits).all(0)
 
     def over(self) -> int:
         return int((self.req > self.alloc).sum())
@@ -164,54 +304,113 @@ def live_scores(io: torch.Tensor, cpu_req: float, u: torch.Tensor,
     return torch.clamp(torch.trunc(s), min=0.0) if trunc else s
 
 
+def _gaps(s, feas, avail, chosen) -> torch.Tensor:
+    """[p] float64: best score s [p, n] among `avail` nodes less the
+    chosen node's, over the span of the `feas` nodes (both [n] bool)."""
+    hi = torch.where(feas[None, :], s, -torch.inf).amax(1)
+    lo = torch.where(feas[None, :], s, torch.inf).amin(1)
+    span = torch.clamp(hi - lo, min=1e-12)
+    best = torch.where(avail[None, :], s, -torch.inf).amax(1)
+    got = s.gather(1, chosen[:, None])[:, 0]
+    gap = torch.where(torch.isfinite(best), (best - got) / span, 0.0)
+    return torch.clamp(gap, min=0.0)
+
+
 def score_gaps(io, cpu_req, u, v, feas, avail, chosen, trunc: bool = False) -> torch.Tensor:
-    """[p] float64: best min-max-scaled score among `avail` nodes less the
-    chosen node's, the scale taken over `feas` nodes (both [n] bool)."""
-    out = []
-    for a in range(0, io.shape[0], ROW_BLOCK):
-        s = live_scores(io[a:a + ROW_BLOCK], cpu_req, u, v, trunc)
-        hi = torch.where(feas[None, :], s, -torch.inf).amax(1)
-        lo = torch.where(feas[None, :], s, torch.inf).amin(1)
-        span = torch.clamp(hi - lo, min=1e-12)
-        best = torch.where(avail[None, :], s, -torch.inf).amax(1)
-        got = s.gather(1, chosen[a:a + ROW_BLOCK, None])[:, 0]
-        gap = torch.where(torch.isfinite(best), (best - got) / span, 0.0)
-        out.append(torch.clamp(gap, min=0.0))
+    """[p] float64: best min-max-scaled live score among `avail` nodes
+    less the chosen node's, the scale taken over `feas` nodes."""
+    out = [_gaps(live_scores(io[a:a + ROW_BLOCK], cpu_req, u, v, trunc), feas, avail,
+                 chosen[a:a + ROW_BLOCK])
+           for a in range(0, io.shape[0], ROW_BLOCK)]
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.float64)
+
+
+def min_max(s: torch.Tensor) -> torch.Tensor:
+    """s [..., n] scaled to 0-100 over its last axis as the program scales
+    it (the highest floored at 0, the lowest lowered by 1 where the two
+    are equal), in s's dtype."""
+    hi = torch.clamp(s.amax(-1), min=0.0)
+    lo = s.amin(-1)
+    lo = torch.where(hi == lo, lo - 1.0, lo)
+    return (s - lo[..., None]) * MAX_NODE_SCORE / (hi - lo)[..., None]
 
 
 def norm_scores(io, cpu_req: float, u, v, dtype=torch.float64) -> torch.Tensor:
     """[p, n] live-policy scores min-max scaled to 0-100 over all nodes as
-    the program scales them (the highest floored at 0, the lowest lowered
-    by 1 where the two are equal), every operation in `dtype`."""
+    the program scales them, every operation in `dtype`."""
     io = torch.as_tensor(io, device=u.device).to(dtype)
     u, v = u.to(dtype), v.to(dtype)
     beta = torch.where(io > 0, 1.0 / (1.0 + cpu_req / torch.where(io > 0, io, 1.0)), 0.0)
     alpha = 1.0 - beta
     s = MAX_RAW_SCORE - MAX_RAW_SCORE * torch.abs(alpha[:, None] * v[None, :]
                                                   - beta[:, None] * u[None, :])
-    hi = torch.clamp(s.amax(1), min=0.0)
-    lo = s.amin(1)
-    lo = torch.where(hi == lo, lo - 1.0, lo)
-    return (s - lo[:, None]) * MAX_NODE_SCORE / (hi - lo)[:, None]
+    return min_max(s)
 
 
-def _place_bf16(io_np: np.ndarray, cpu_req: float, u, v, state: State, req,
-                match: np.ndarray, anti: bool) -> np.ndarray:
+class _Run:
+    """One run's records as the reference reads them: the policy, the
+    pod classes, and per pod its diskIO, class, request and match."""
+
+    def __init__(self, rec, device):
+        self.policy = policy_of(rec.config)
+        self.cls = cls = PodClasses(rec.config, rec.cluster)
+        self.io = _f32(rec.pod_io)
+        init = np.asarray(rec.pod_init, dtype=bool)
+        pc = rec.pod_class
+        self.pod_class = (np.zeros(init.shape[0], np.int64) if pc is None
+                          else np.asarray(pc, np.int64))
+        self.match = np.where(init, cls.match_init[self.pod_class],
+                              cls.match_new[self.pod_class])
+        self.req = cls.req[self.pod_class]
+        self.dev = dev = torch.device(device)
+        self.u = torch.as_tensor(_f32(rec.cluster.disk_io) / DISK_IO_DIVISOR, device=dev)
+        self.v = torch.as_tensor(_f32(rec.cluster.cpu_pct) / CPU_DIVISOR, device=dev)
+        if self.policy == "card":
+            self.card_raw = cls.card_scores(device=dev)
+            self.card_norm = min_max(self.card_raw)
+
+    def norm_rows(self, pids: np.ndarray, k: int, dtype=torch.float64) -> torch.Tensor:
+        """[len(pids), n] min-max scaled scores of pods of class k, every
+        operation in `dtype`."""
+        if self.policy == "card":
+            if dtype == torch.float64:
+                s = self.card_norm[k]
+            else:
+                cls = self.cls
+                s = min_max(card_scores(cls.cards, cls.demand[k], cls.fit[k], dtype, self.dev))
+            return s[None, :].expand(len(pids), -1)
+        return norm_scores(self.io[pids], float(self.cls.req[k][0]), self.u, self.v, dtype)
+
+
+def _groups(pod_class: np.ndarray, match: np.ndarray):
+    """(class, match, [b] bool) of each pair that occurs."""
+    for k in np.unique(pod_class):
+        of_k = pod_class == k
+        for m in np.unique(match[of_k]):
+            yield int(k), bool(m), of_k & (match == m)
+
+
+def _place_bf16(j: _Run, pids: np.ndarray, state: State) -> np.ndarray:
     """The control's placement: pods one by one, each on the node of the
     highest bfloat16 score among those with room."""
-    out = np.full(io_np.shape[0], -1, np.int64)
-    for a in range(0, io_np.shape[0], ROW_BLOCK):
-        s = norm_scores(io_np[a:a + ROW_BLOCK], cpu_req, u, v, torch.bfloat16)
-        s = s.float().cpu().numpy()
+    cls = j.cls
+    pc, match = j.pod_class[pids], j.match[pids]
+    out = np.full(pids.shape[0], -1, np.int64)
+    for a in range(0, pids.shape[0], ROW_BLOCK):
+        block = pids[a:a + ROW_BLOCK]
+        s = np.empty((block.shape[0], j.u.shape[0]), np.float32)
+        for k in np.unique(pc[a:a + ROW_BLOCK]):
+            rows = np.flatnonzero(pc[a:a + ROW_BLOCK] == k)
+            s[rows] = j.norm_rows(block[rows], int(k), torch.bfloat16).float().cpu().numpy()
         for i in range(s.shape[0]):
-            k = a + i
-            ok = state.room(req, bool(match[k]), anti)
+            p = a + i
+            k = pc[p]
+            ok = state.room(cls.req[k], bool(match[p]), cls.has_anti, cls.fit[k])
             if not ok.any():
                 continue
-            j = int(np.argmax(np.where(ok, s[i], -np.inf)))
-            out[k] = j
-            state.add(np.array([j]), req, match[k:k + 1], anti)
+            n = int(np.argmax(np.where(ok, s[i], -np.inf)))
+            out[p] = n
+            state.add(np.array([n]), cls.req[k][None, :], match[p:p + 1], cls.has_anti)
     return out
 
 
@@ -226,24 +425,17 @@ def control_check(rec, device="cpu") -> dict:
 
 
 def _walk(rec, device, *, control: bool) -> dict:
-    cfg = rec.config
-    cls = PodClasses(cfg)
-    cluster = rec.cluster
-    io_all = _f32(rec.pod_io)
-    init = np.asarray(rec.pod_init, dtype=bool)
-    match_all = np.where(init, cls.match_init, cls.match_new)
-    dev = torch.device(device)
-    u = torch.as_tensor(_f32(cluster.disk_io) / DISK_IO_DIVISOR, device=dev)
-    v = torch.as_tensor(_f32(cluster.cpu_pct) / CPU_DIVISOR, device=dev)
-    cpu_req = float(cls.req[0])
-    state = State(cluster.alloc.astype(np.int64))
+    j = _Run(rec, device)
+    cls = j.cls
+    state = State(rec.cluster.alloc.astype(np.int64))
     bound_count = np.zeros(rec.submitted, np.int64)
     out = dict(double_binds=0, lost_pods=0, unknown_nodes=0, over_capacity=0,
-               anti_affinity_breaks=0, unplaced_with_room=0, score_gap=0.0)
+               anti_affinity_breaks=0, card_fit_breaks=0, unplaced_with_room=0,
+               score_gap=0.0)
     ctrl = dict(score_gap=0.0)
     k1 = rec.k1
     if k1 is None:
-        # no engine window was captured: nothing holds K1 to the reference
+        # no engine window was captured: nothing holds the engine's scores
         out.update(k1_score_err=float("inf"), k1_mask_errors=1)
     for ci, c in enumerate(rec.cycles):
         pids, nodes = c.bound_pids, c.bound_nodes
@@ -251,37 +443,32 @@ def _walk(rec, device, *, control: bool) -> dict:
         out["unknown_nodes"] += int((~known).sum())
         pids, nodes = pids[known], nodes[known]
         np.add.at(bound_count, pids, 1)
+        out["card_fit_breaks"] += int((~cls.fit[j.pod_class[pids], nodes]).sum())
         start = state.copy()
         if k1 is not None and ci == k1["cycle"]:
-            got = _k1_numbers(k1, start, pids, nodes, match_all, cls, io_all, cpu_req,
-                              u, v, control)
-            (ctrl if control else out).update(got)
-        state.add(nodes, cls.req, match_all[pids], cls.has_anti)
+            (ctrl if control else out).update(_k1_numbers(k1, start, pids, nodes, j, control))
+        state.add(nodes, j.req[pids], j.match[pids], cls.has_anti)
         out["over_capacity"] += state.over()
         out["anti_affinity_breaks"] += state.anti_breaks()
-        unsched = int(getattr(c.metrics, "pods_unschedulable", 0))
-        if unsched and state.room(cls.req, cls.match_new, cls.has_anti).any():
-            out["unplaced_with_room"] += unsched
+        out["unplaced_with_room"] += _unplaced(j, c.unsched_pids, state)
         if len(pids):
             scalar = bool(getattr(c.metrics, "used_fallback", False))
+            popped = np.unique(j.pod_class[np.concatenate([pids, c.unsched_pids])])
             if not control:
                 out["score_gap"] = max(out["score_gap"], _cycle_gap(
-                    io_all[pids], nodes, match_all[pids], start, state, cls,
-                    cpu_req, u, v, dev, trunc=scalar))
+                    j, pids, nodes, start, state, popped, trunc=scalar and j.policy == LIVE))
             elif not scalar:
                 cstate = start.copy()
-                cnodes = _place_bf16(io_all[pids], cpu_req, u, v, cstate,
-                                     cls.req, match_all[pids], cls.has_anti)
+                cnodes = _place_bf16(j, pids, cstate)
                 placed = cnodes >= 0
                 ctrl["score_gap"] = max(ctrl["score_gap"], _cycle_gap(
-                    io_all[pids][placed], cnodes[placed], match_all[pids][placed],
-                    start, cstate, cls, cpu_req, u, v, dev))
+                    j, pids[placed], cnodes[placed], start, cstate, popped))
         if len(c.deleted_pids):
             # a deleted pod leaves the node it was bound to last
             gone = c.deleted_pids
             where = _last_node(rec, gone)
             ok = where >= 0
-            state.add(where[ok], cls.req, match_all[gone[ok]], cls.has_anti, -1)
+            state.add(where[ok], j.req[gone[ok]], j.match[gone[ok]], cls.has_anti, -1)
     if control:
         return ctrl
     out["double_binds"] = int(np.clip(bound_count - 1, 0, None).sum())
@@ -289,53 +476,81 @@ def _walk(rec, device, *, control: bool) -> dict:
     return out
 
 
-def _k1_numbers(k1, start: State, pids, nodes, match_all, cls: PodClasses, io_all,
-                cpu_req, u, v, control: bool) -> dict:
-    """k1_score_err and k1_mask_errors of the captured K1 window; with
+def _unplaced(j: _Run, unsched: np.ndarray, state: State) -> int:
+    """Pods a cycle left unschedulable for which a node had room at its end."""
+    cls = j.cls
+    count = 0
+    for k, m, sel in _groups(j.pod_class[unsched], j.match[unsched]):
+        if state.room(cls.req[k], m, cls.has_anti, cls.fit[k]).any():
+            count += int(sel.sum())
+    return count
+
+
+def _k1_numbers(k1, start: State, pids, nodes, j: _Run, control: bool) -> dict:
+    """k1_score_err and k1_mask_errors of the captured engine window; with
     control, k1_score_err of the same window scored in bfloat16."""
+    cls = j.cls
     got = k1["out"]
     rows, cols = got.shape
     w = k1["window"]
     window = k1["pids"][w * rows:(w + 1) * rows]
-    n = u.shape[0]
+    n = j.u.shape[0]
     if cols < n or not len(window):
         # the output does not cover the window's pods and nodes
         return dict(k1_score_err=float("inf"), k1_mask_errors=rows * cols)
     # the window starts from the cycle's start and its earlier windows' bindings
     state = start.copy()
-    earlier = np.isin(pids, k1["pids"][:w * rows])
-    state.add(nodes[earlier], cls.req, match_all[pids[earlier]], cls.has_anti)
-    fit = torch.as_tensor(state.room(cls.req, False, False), device=u.device)
-    ref_mask = torch.zeros(rows, cols, dtype=torch.bool, device=u.device)
-    ref_mask[:len(window), :n] = fit[None, :]
+    early = np.isin(pids, k1["pids"][:w * rows])
+    state.add(nodes[early], j.req[pids[early]], j.match[pids[early]], cls.has_anti)
+    fits = np.stack([state.room(cls.req[k], False, False, cls.fit[k])
+                     for k in range(cls.req.shape[0])])
+    row_class = j.pod_class[window]
+    ref_mask = torch.zeros(rows, cols, dtype=torch.bool, device=j.dev)
+    ref_mask[:len(window), :n] = torch.as_tensor(fits[row_class], device=j.dev)
+    dtype = torch.bfloat16 if control else torch.float64
     err = 0.0
-    for a in range(0, len(window), ROW_BLOCK):
-        b = min(a + ROW_BLOCK, len(window))
-        ref = norm_scores(io_all[window[a:b]], cpu_req, u, v)
-        if control:
-            mine = norm_scores(io_all[window[a:b]], cpu_req, u, v, torch.bfloat16)
-        else:
-            mine = got[a:b, :n].to(device=u.device)
-        gap = torch.where(ref_mask[a:b, :n], (mine.double() - ref).abs(), 0.0)
-        err = max(err, float(gap.max()))
+    for k in np.unique(row_class):
+        of_k = np.flatnonzero(row_class == k)
+        for a in range(0, len(of_k), ROW_BLOCK):
+            r = of_k[a:a + ROW_BLOCK]
+            ref = j.norm_rows(window[r], int(k))
+            if control:
+                mine = j.norm_rows(window[r], int(k), dtype)
+            else:
+                mine = got[torch.as_tensor(r, device=got.device), :n].to(device=j.dev)
+            rt = torch.as_tensor(r, device=j.dev)
+            gap = torch.where(ref_mask[rt, :n], (mine.double() - ref).abs(), 0.0)
+            err = max(err, float(gap.max()))
     if control:
         return dict(k1_score_err=err)
-    mask_errors = int((ref_mask != (got.to(u.device) > NEG * 0.5)).sum())
+    mask_errors = int((ref_mask != (got.to(j.dev) > NEG * 0.5)).sum())
     return dict(k1_score_err=err, k1_mask_errors=mask_errors)
 
 
-def _cycle_gap(io, nodes, match, start: State, end: State, cls: PodClasses,
-               cpu_req, u, v, dev, trunc: bool = False) -> float:
-    """The widest score gap of one cycle's bindings, per pod class."""
+def _cycle_gap(j: _Run, pids, nodes, start: State, end: State, popped: np.ndarray,
+               trunc: bool = False) -> float:
+    """The widest score gap of one cycle's bindings, per pod class and
+    match. A node counts as available to a pod where at the cycle's end it
+    has room for the pod and resources for a pod of every class in
+    `popped`, the classes of the cycle's pods, whose card fit holds there:
+    such a node never rejected a bid (the auction rejects a bid only where
+    the pod no longer fits, and a pod bids only where its cards fit), so
+    its auction price stayed 0. A node that rejected a larger pod's bid
+    may end with room for a smaller one, its price raised."""
+    cls, dev = j.cls, j.dev
+    never = end.room_all(cls.req[popped], cls.fit[popped])
     worst = 0.0
-    for m in np.unique(match):
-        sel = match == m
-        feas = torch.as_tensor(start.room(cls.req, False, False), device=dev)
-        avail = torch.as_tensor(end.room(cls.req, bool(m), cls.has_anti), device=dev)
-        g = score_gaps(
-            torch.as_tensor(io[sel], dtype=torch.float64, device=dev), cpu_req, u, v,
-            feas, avail, torch.as_tensor(nodes[sel], dtype=torch.int64, device=dev), trunc,
-        )
+    for k, m, sel in _groups(j.pod_class[pids], j.match[pids]):
+        feas = torch.as_tensor(start.room(cls.req[k], False, False, cls.fit[k]), device=dev)
+        avail = torch.as_tensor(end.room(cls.req[k], m, cls.has_anti, cls.fit[k]) & never,
+                                device=dev)
+        chosen = torch.as_tensor(nodes[sel], dtype=torch.int64, device=dev)
+        if j.policy == "card":
+            s = j.card_raw[k][None, :].expand(chosen.shape[0], -1)
+            g = _gaps(s, feas, avail, chosen)
+        else:
+            io = torch.as_tensor(j.io[pids][sel], dtype=torch.float64, device=dev)
+            g = score_gaps(io, float(cls.req[k][0]), j.u, j.v, feas, avail, chosen, trunc)
         if g.numel():
             worst = max(worst, float(g.max()))
     return worst

@@ -77,7 +77,10 @@ class Cell:
 
 def load_cell(name: str, root: Path) -> Cell:
     """The cell `name` of root/BENCHMARK.json, with its configuration and
-    traffic files and the metrics it reports."""
+    traffic files and the metrics it reports; ValueError where the
+    reference does not judge the configuration's policy."""
+    from schedbench.reference import policy_of
+
     bench = json.loads((root / "BENCHMARK.json").read_text())
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
@@ -85,6 +88,7 @@ def load_cell(name: str, root: Path) -> Cell:
     w = work[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = json.loads((root / conf["file"]).read_text())
+    policy_of(config)
     traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())
 
     def mine(metrics: list) -> list:
@@ -171,6 +175,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
     from schedbench.loop import CellRun
     from schedbench.profile import Tracer
 
+    t_run = time.perf_counter()
     span_path = None
     if trace:
         span_path = os.path.join(os.environ.get("TMPDIR") or str(Path.home()), "schedbench_spans")
@@ -226,7 +231,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device,
     if on_card:
         torch.cuda.empty_cache()
     lim = reference.limits(cell.config)
+    t_ref = time.perf_counter()
     values = reference.check(rec, device)
+    log(f"schedbench: setup_in_run_s {t_first - t_run} "
+        f"reference_s {time.perf_counter() - t_ref}", file=sys.stderr)
     correct, shown = reference.verdict(values, lim)
     window = rec.window()
     out = {

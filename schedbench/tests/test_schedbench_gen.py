@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 
 from schedbench.gen import traffic
-from schedbench.gen.cluster import PodSource, draw_cluster
+from schedbench.gen.cluster import PodSource, class_block, draw_cluster
 from schedbench.tests.conftest import tiny_cell
 
 BIG = 2**31 + 987_654_321
@@ -65,3 +65,50 @@ def test_schedbench_refill_tops_up_the_backlog():
     assert traffic.pool_size(tr, 2.5) == 8192 + 250
     assert traffic.refill_count(tr, 100) == 8092
     assert traffic.refill_count(tr, 9000) == 0
+
+
+def _card_config():
+    from schedbench.tests.test_schedbench_cards import card_cell
+
+    return card_cell("card", nodes=300).config
+
+
+def test_schedbench_cards_are_a_function_of_the_seed():
+    cfg = _card_config()
+    a, b, c = draw_cluster(cfg, BIG), draw_cluster(cfg, BIG), draw_cluster(cfg, BIG + 1)
+    assert a.cards.shape == (300, 4, 6) and a.card_healthy.shape == (300, 4)
+    assert np.array_equal(a.cards, b.cards) and np.array_equal(a.card_healthy, b.card_healthy)
+    assert not np.array_equal(a.cards, c.cards)
+    # the same nodes' card sets in another order, every card as drawn
+    def sets(cl):
+        rows = np.concatenate([cl.cards.reshape(300, -1), cl.card_healthy], axis=1)
+        return rows[np.lexsort(rows.T[::-1])]
+    assert np.array_equal(sets(a), sets(c))
+    bw, clock, core, power, free, total = np.moveaxis(a.cards, -1, 0)
+    assert bw.min() >= 16 and bw.max() < 64 and set(np.unique(clock)) == {1000, 1500, 2000}
+    assert core.min() >= 1024 and power.max() < 400 and free.max() < 32000
+    assert (total == 32000).all() and 0.9 < a.card_healthy.mean() < 1.0
+    # the node draws are those of the configuration without cards
+    plain = draw_cluster({**cfg, "node": {**cfg["node"], "cards": None}}, BIG)
+    assert np.array_equal(plain.cpu_pct, a.cpu_pct) and plain.cards is None
+
+
+def test_schedbench_class_draws_give_every_seed_the_same_counts():
+    cfg = _card_config()
+    shares = np.array([c["share"] for c in cfg["pod"]["classes"]])
+    shares /= shares.sum()
+    block = PodSource.BLOCK
+    a, b = PodSource(cfg, BIG), PodSource(cfg, BIG + 1)
+    a.count = b.count = 2 * block + 5
+    ca, cb = a.classes(), b.classes()
+    assert not np.array_equal(ca, cb)
+    for k in range(2):
+        part = slice(k * block, (k + 1) * block)
+        assert np.array_equal(np.bincount(ca[part]), np.bincount(cb[part]))
+    assert np.allclose(np.bincount(ca[:block]) / block, shares, atol=1 / block)
+    assert [a.pod_class(i) for i in range(10)] == ca[:10].tolist()
+    # the diskIO draws do not move with the classes
+    plain = PodSource({**cfg, "pod": {**cfg["pod"], "classes": None}}, BIG)
+    plain.count = a.count
+    assert np.array_equal(plain.draws(), a.draws())
+    assert class_block([{"share": 1}, {"share": 2}], 4).tolist() == [0, 1, 1, 1]

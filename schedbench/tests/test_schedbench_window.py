@@ -40,11 +40,9 @@ def test_schedbench_harness_stages_are_clipped_to_the_window():
     stages = [("schedbench.delete", 12.0, 13.0), ("schedbench.delete", 20.0, 22.5),
               ("schedbench.delete", 9.0, 10.0), ("schedbench.submit", 19.5, 20.5)]
     rec = _records(cycles, window_t0=10.0, window_t1=20.0, stages=stages)
-    view = RunView(rec=rec, setup_s=0.0)
-    # only the deletion between the cycles is inside [10, 20]: 1 s of 10
-    assert math.isclose(reader("informer_share.saturated")(view), 10.0)
     from schedbench.metrics._shared import stage_seconds
 
+    # only the deletion between the cycles is inside [10, 20]: 1 s of 10
     assert stage_seconds(rec) == {"schedbench.delete": 1.0, "schedbench.submit": 0.5}
 
 
