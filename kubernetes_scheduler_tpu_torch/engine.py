@@ -34,6 +34,7 @@ LocalEngine's surface.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -628,6 +629,43 @@ def local_spread_dmin(snapshot: SnapshotArrays) -> torch.Tensor:
     ).amin(dim=0)
 
 
+# ---- the card path's trace --------------------------------------------------
+
+
+@contextlib.contextmanager
+def card_region(stage: str, cards: torch.Tensor, p: int):
+    """One region of the GPU-card path in a window: `stage` "score" (the
+    card policy's fit, maxima and score in compute_scores) or "fit" (the
+    card fit in other_fit). Under a published ENGINE_TRACE whose snapshot
+    holds cards (EngineTrace.cards, what the host knew when it built the
+    snapshot; never read from the device), the region's pods x nodes x
+    card slots, from the shapes, are added to `card_cells`; with spans on
+    it is one `card_path` span (args pods, nodes, cards, stage) and, on a
+    CUDA device, a timed event pair in `card_events`, read by the host
+    after the call's result read. Otherwise it records nothing."""
+    trace = ENGINE_TRACE.get()
+    if trace is None or not trace.cards:
+        yield
+        return
+    n, c = int(cards.shape[0]), int(cards.shape[1])
+    trace.card_cells[stage] = trace.card_cells.get(stage, 0) + p * n * c
+    spans = trace.spans
+    if spans is None:
+        yield
+        return
+    events = None
+    if cards.is_cuda:
+        stream = torch.cuda.current_stream(cards.device)
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
+    t0 = time.perf_counter()
+    yield
+    if events is not None:
+        events[1].record(stream)
+        trace.card_events.append((stage, *events))
+    spans.add("card_path", t0, time.perf_counter(), pods=p, nodes=n, cards=c, stage=stage)
+
+
 # ---- scores ---------------------------------------------------------------
 
 
@@ -646,14 +684,15 @@ def compute_scores(
         s = free_capacity(snapshot.cpu_pct, snapshot.mem_pct, snapshot.disk_io)
         return s[None, :].expand(pods.request.shape[0], s.shape[0])
     if policy == "card":
-        node_fits, per_card = card_fit(
-            snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
-            pods.want_number, pods.want_memory, pods.want_clock,
-        )
-        maxima = collect_max_card_values(
-            snapshot.cards, per_card & node_fits[:, :, None]
-        )
-        return card_score(snapshot.cards, snapshot.card_mask, per_card, maxima)
+        with card_region("score", snapshot.cards, pods.want_number.shape[0]):
+            node_fits, per_card = card_fit(
+                snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
+                pods.want_number, pods.want_memory, pods.want_clock,
+            )
+            maxima = collect_max_card_values(
+                snapshot.cards, per_card & node_fits[:, :, None]
+            )
+            return card_score(snapshot.cards, snapshot.card_mask, per_card, maxima)
     if policy == "least_allocated":
         return least_allocated(snapshot.allocatable, snapshot.requested, pods.request)
     if policy == "balanced_allocation":
@@ -744,10 +783,11 @@ def compute_soft_scores(
 def other_fit(snapshot: SnapshotArrays, pods: PodBatch) -> torch.Tensor:
     """[p, n] bool: GPU cards, taints and required node affinity, the
     families the fused kernel takes as its one `other` operand."""
-    gpu_fits, _ = card_fit(
-        snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
-        pods.want_number, pods.want_memory, pods.want_clock,
-    )
+    with card_region("fit", snapshot.cards, pods.want_number.shape[0]):
+        gpu_fits, _ = card_fit(
+            snapshot.cards, snapshot.card_mask, snapshot.card_healthy,
+            pods.want_number, pods.want_memory, pods.want_clock,
+        )
     return gpu_fits & taint_toleration_fit(
         snapshot.taints, snapshot.taint_mask, pods.tolerations, pods.tol_mask
     ) & node_affinity_fit(

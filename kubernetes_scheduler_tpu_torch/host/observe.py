@@ -19,9 +19,10 @@ BASELINE.json:
   assigned trace id, emitted as Chrome-trace-event JSON to a rotating,
   disk-budgeted directory (trace/spans.py).
 - `ENGINE_TRACE` / `engine_trace`: the handle through which a cycle's
-  open SpanSet reaches the engine's window loop and the auction, and
-  the auction's round count comes back; `PodEventBursts`: the snapshot
-  mirror's pod events coalesced into burst spans.
+  open SpanSet reaches the engine's window loop, its card path and the
+  auction, and the auction's round count and the card path's work come
+  back; `PodEventBursts`: the snapshot mirror's pod events coalesced
+  into burst spans.
 - `profile_device_step`: wraps one engine call in a torch.profiler trace
   (kernels, memcpys and host ops on one timeline), shifted onto the span
   files' clock — armed on demand through /debug/profile?cycles=N.
@@ -374,6 +375,12 @@ SHIPPED_METRICS = (
     # counterpart of kube-scheduler's scheduler_pending_pods)
     "auction_rounds_total",
     "pending_pods_count",
+    # the engine's GPU-card path by stage (`stage`: score / fit): pods x
+    # nodes x card slots from the shapes (engine.card_region through
+    # ENGINE_TRACE, no device read), and its device seconds from CUDA
+    # events on cycles with spans on
+    "card_cells_total",
+    "card_device_seconds_total",
 )
 
 
@@ -570,6 +577,10 @@ PORT_SPANS = (
     # each round's dispatch through the any-bid read
     "auction",
     "auction_round",
+    # one region of the GPU-card path inside an `engine_window`
+    # (engine.card_region; args pods, nodes, cards, stage: score / fit),
+    # only where the snapshot holds cards
+    "card_path",
 )
 
 # every span (stage) name this package has EVER emitted, pinned: span

@@ -66,6 +66,17 @@ def _pod_key(pod: Pod) -> str:
     return pod.uid or f"{pod.namespace}/{pod.name}"
 
 
+def card_slots(snapshot) -> int:
+    """The card slots a node of `snapshot` holds (its card axis), 0 where
+    no node has a card: read from the host's own arrays as the builder
+    made them, never from the device (a snapshot of device tensors reads
+    0). The engine's card path records its work only when this is > 0."""
+    mask = snapshot.card_mask
+    if isinstance(mask, np.ndarray) and mask.any():
+        return int(mask.shape[1])
+    return 0
+
+
 class Binding(NamedTuple):
     # NamedTuple (not dataclass): RecordingBinder.bind_many constructs
     # one per bind — tuple __new__ measured ~2x faster than dataclass
@@ -189,6 +200,13 @@ class CycleMetrics:
     # scheduling queue once the cycle popped its window
     auction_rounds: int = 0
     queue_pending: int = 0
+    # the GPU-card path over this cycle's engine calls (engine.card_region
+    # through observe.ENGINE_TRACE; 0 where the snapshot holds no card):
+    # pods x nodes x card slots of its regions (host counts from the
+    # shapes), and their device seconds, from CUDA events read after the
+    # result's read (spans on and a CUDA engine only, else 0.0)
+    card_cells: int = 0
+    card_seconds: float = 0.0
 
 
 @dataclass
@@ -611,10 +629,22 @@ class Scheduler:
             "pending_pods_count",
             "Pods left in the scheduling queue at the latest cycle's pop",
         )
+        self.ctr_card_cells = Counter(
+            "card_cells_total",
+            "Pods x nodes x card slots the engine's GPU-card path covered, "
+            "by stage (score: the card policy; fit: the card fit)",
+            labels=("stage",),
+        )
+        self.ctr_card_seconds = Counter(
+            "card_device_seconds_total",
+            "Device seconds of the engine's GPU-card path, by stage "
+            "(CUDA events; cycles with spans on only)",
+            labels=("stage",),
+        )
         self.prom_collectors = (
             self.hist_cycle, self.hist_engine, self.ctr_uploads,
             self.ctr_shard_bytes, self.ctr_slo, self.ctr_rounds,
-            self.gauge_pending,
+            self.gauge_pending, self.ctr_card_cells, self.ctr_card_seconds,
         ) + (self.mirror.collectors if self.mirror is not None else ())
         # SLO watchdog state (config.cycle_slo_ms): run totals, the last
         # breach's identity (trace id + flight-recorder seq — the two
@@ -1776,7 +1806,7 @@ class Scheduler:
                 "pods": pods_batch, "kw": kw,
             }
             self._trace_cycle.append(tctx)
-        with engine_trace(self._cycle_span) as et:
+        with engine_trace(self._cycle_span, card_slots(snapshot)) as et:
             infl = self._dispatch_resident(
                 snapshot, pods_batch, kw, ephemeral=ephemeral,
                 use_async=use_async, tctx=tctx, mirror_delta=mirror_delta,
@@ -1807,13 +1837,26 @@ class Scheduler:
             engine_trace=et,
         )
 
-    def _count_rounds(self, m: CycleMetrics, trace) -> None:
-        """Account the auction rounds an engine call reported through
-        observe.ENGINE_TRACE (none for an engine that runs no auction in
-        this process: the greedy assigner, a sidecar, the sharded mesh)."""
-        if trace is not None and trace.auction_rounds:
+    def _fold_engine_trace(self, m: CycleMetrics, trace) -> None:
+        """Account what an engine call reported through
+        observe.ENGINE_TRACE, once its result has been read: the auction
+        rounds (none for an engine that runs no auction in this process:
+        the greedy assigner, a sidecar, the sharded mesh) and the card
+        path's cells and device seconds. The result's read waited on the
+        card, so the card path's events are complete and reading them
+        adds no synchronisation."""
+        if trace is None:
+            return
+        if trace.auction_rounds:
             m.auction_rounds += trace.auction_rounds
             self.ctr_rounds.inc(trace.auction_rounds, head=trace.head)
+        for stage, cells in trace.card_cells.items():
+            m.card_cells += cells
+            self.ctr_card_cells.inc(cells, stage=stage)
+        for stage, start, end in trace.card_events:
+            secs = start.elapsed_time(end) / 1e3
+            m.card_seconds += secs
+            self.ctr_card_seconds.inc(secs, stage=stage)
 
     def _set_engine_trace_id(self) -> None:
         """Hand the cycle's trace id + predicted flight-recorder seq to
@@ -1913,7 +1956,7 @@ class Scheduler:
         idx = to_host(res.node_idx)
         t_done = time.perf_counter()
         m.engine_seconds += t_done - infl.t_eng
-        self._count_rounds(m, infl.engine_trace)
+        self._fold_engine_trace(m, infl.engine_trace)
         self._span(
             "engine_step", infl.t_eng, t_done,
             resident=infl.resident, delta=infl.delta_sent,
@@ -2754,7 +2797,7 @@ class Scheduler:
                 "pods": pods_batch, "kw": kw, "batch_window": bw,
             }
             self._trace_cycle.append(tctx)
-        with engine_trace(self._cycle_span) as et:
+        with engine_trace(self._cycle_span, card_slots(snapshot)) as et:
             res, t_eng = self._dispatch_windows(
                 snapshot, windows, kw, m, ephemeral=ephemeral, tctx=tctx,
                 mirror_delta=mirror_delta,
@@ -2762,7 +2805,7 @@ class Scheduler:
         idx = to_host(res.node_idx).reshape(-1)
         t_done = time.perf_counter()
         m.engine_seconds += t_done - t_eng
-        self._count_rounds(m, et)
+        self._fold_engine_trace(m, et)
         self._span("engine_step", t_eng, t_done, backlog=True)
         if (
             idx.shape[0] < len(window)

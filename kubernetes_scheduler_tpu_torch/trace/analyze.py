@@ -58,8 +58,8 @@ ATTRIBUTION_STAGES = (
 )
 # reported (percentiles) but never attributed: concurrent with the
 # engine step, nested inside it (across the bridge, or the port's
-# engine_window / auction / auction_round), or between cycles (the
-# port's pod_events bursts)
+# engine_window / auction / auction_round / card_path), or between
+# cycles (the port's pod_events bursts)
 NON_ATTRIBUTED_STAGES = (
     "host_overlap",
     "deserialize",
@@ -70,6 +70,7 @@ NON_ATTRIBUTED_STAGES = (
     "engine_window",
     "auction",
     "auction_round",
+    "card_path",
 )
 
 

@@ -1,8 +1,8 @@
 """The handle through which a cycle's open span set reaches the engine's
-window loop and the auction, and the auction's round count comes back
-(re-exported by host/observe, beside SpanSet). It lives here, with no
-imports of its own, so that engine.py and ops/assign.py read it without
-depending on the host package.
+window loop, its card path and the auction, and the auction's round count
+and the card path's work come back (re-exported by host/observe, beside
+SpanSet). It lives here, with no imports of its own, so that engine.py
+and ops/assign.py read it without depending on the host package.
 """
 
 from __future__ import annotations
@@ -14,16 +14,25 @@ import contextvars
 class EngineTrace:
     """What one engine call shares with the cycle that made it: the
     cycle's open SpanSet (host/observe; None with spans off), into which
-    the engine's window loop and the auction add their spans, and the
-    auction rounds the call ran with the bid head that ran them (host
-    integers: no device read)."""
+    the engine's window loop, its card path and the auction add their
+    spans; the auction rounds the call ran with the bid head that ran them
+    (host integers: no device read); and the card path's work. `cards` is
+    the card slots a node of the call's snapshot holds, as the host knew
+    them when it built the snapshot (0: no node has a card, and the card
+    path records nothing). `card_cells` counts pods x nodes x card slots
+    of each card region by stage, from the shapes; `card_events` holds a
+    (stage, start, end) CUDA event pair per region, made only with spans
+    on, read by the host once the call's result is read."""
 
-    __slots__ = ("spans", "auction_rounds", "head")
+    __slots__ = ("spans", "auction_rounds", "head", "cards", "card_cells", "card_events")
 
-    def __init__(self, spans=None):
+    def __init__(self, spans=None, cards: int = 0):
         self.spans = spans
         self.auction_rounds = 0
         self.head = ""
+        self.cards = cards
+        self.card_cells: dict = {}
+        self.card_events: list = []
 
 
 # the handle the engine code reads (engine.py, ops/assign.py); set by
@@ -35,10 +44,11 @@ ENGINE_TRACE: contextvars.ContextVar = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def engine_trace(spans=None):
-    """Publish `spans` (a cycle's open SpanSet, or None) to the engine
-    calls made inside the block; yields the EngineTrace they fill."""
-    trace = EngineTrace(spans)
+def engine_trace(spans=None, cards: int = 0):
+    """Publish `spans` (a cycle's open SpanSet, or None) and the card
+    slots of the snapshot (EngineTrace.cards) to the engine calls made
+    inside the block; yields the EngineTrace they fill."""
+    trace = EngineTrace(spans, cards)
     token = ENGINE_TRACE.set(trace)
     try:
         yield trace

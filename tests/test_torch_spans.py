@@ -12,6 +12,11 @@ profiles on the span clock (host/observe.py), on the CPU.
 - With span_path unset nothing is collected, the rounds still count, and
   the engine's results are bitwise those of a call with no handle
   published.
+- Where the snapshot holds GPU cards, each region of the card path (the
+  card policy's score, the card fit) is one `card_path` span inside its
+  `engine_window`; card_cells_total{stage} and CycleMetrics.card_cells
+  count its pods x nodes x card slots; without cards nothing is
+  recorded; the decisions are bitwise the same with spans on and off.
 - A device profile shares the span files' clock; `spans report` still
   attributes 100% of the cycle.
 
@@ -34,10 +39,11 @@ from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
 HEADS = {"k3": False, "affinity": True}   # head -> constraints (anti-affinity pods)
 
 
-def make_sched(span_path=None, *, constraints=False, n_nodes=24, **kw):
+def make_sched(span_path=None, *, constraints=False, gpu=False, n_nodes=24, **kw):
     """The port's Scheduler on TorchEngine(device="cpu"), the engine path
-    pinned, backlogs of 4 windows of 16; returns (scheduler, running)."""
-    nodes, advisor = gen_host_cluster(n_nodes, seed=0, constraints=constraints)
+    pinned, backlogs of 4 windows of 16 (nodes with 4 SCV cards each with
+    `gpu`); returns (scheduler, running)."""
+    nodes, advisor = gen_host_cluster(n_nodes, seed=0, constraints=constraints, gpu=gpu)
     running: list = []
     kw.setdefault("batch_window", 16)
     kw.setdefault("max_windows_per_cycle", 4)
@@ -279,7 +285,8 @@ def test_torch_spans_profile_shares_the_span_clock(tmp_path):
 
 def test_torch_spans_report_attributes_every_cycle(tmp_path):
     path = tmp_path / "spans"
-    sched, running = make_sched(str(path), constraints=True)
+    # nodes with cards, so the card fit's `card_path` spans are written too
+    sched, running = make_sched(str(path), constraints=True, gpu=True)
     drive(sched, running, gen_host_pods(96, seed=1, constraints=True), cycles=4, delete=8)
     sched.spans.close()
     report = analyze.build_report(str(path))
@@ -288,3 +295,115 @@ def test_torch_spans_report_attributes_every_cycle(tmp_path):
         assert name in analyze.NON_ATTRIBUTED_STAGES
         assert name not in report["attribution_pct"]
         assert report["stages"][name]["count"] > 0
+
+
+# policy -> (nodes with cards, the card path's stages in each window)
+CARD_CASES = {
+    "card": (True, ("score", "fit")),
+    "live-cards": (True, ("fit",)),
+    "live": (False, ()),
+}
+
+
+@pytest.mark.parametrize("windows_per_cycle", [4, 1], ids=["backlog", "single"])
+@pytest.mark.parametrize("case", list(CARD_CASES))
+def test_torch_spans_card_path_nests_and_counts(tmp_path, case, windows_per_cycle):
+    gpu, stages = CARD_CASES[case]
+    path = tmp_path / "spans"
+    policy = "card" if case == "card" else "balanced_cpu_diskio"
+    sched, running = make_sched(str(path), gpu=gpu, policy=policy,
+                                max_windows_per_cycle=windows_per_cycle)
+    ms = drive(sched, running, gen_host_pods(80, seed=1, gpu=True), cycles=6)
+    events = spans_of(sched, path)
+    wins = [e for e in events if e["name"] == "engine_window"]
+    cards = [e for e in events if e["name"] == "card_path"]
+    assert wins and len(cards) == len(wins) * len(stages)
+    for e in cards:
+        mine = [w for w in wins if w["args"]["trace_id"] == e["args"]["trace_id"] and encloses(w, e)]
+        assert len(mine) == 1
+        assert e["args"]["pods"] == mine[0]["args"]["pods"] == 16
+        assert e["args"]["cards"] == 4 and e["args"]["nodes"] >= 24
+    for w in wins:
+        inside = [e["args"]["stage"] for e in cards
+                  if e["args"]["trace_id"] == w["args"]["trace_id"] and encloses(w, e)]
+        assert sorted(inside) == sorted(stages)
+    # the cells counted are the spans' pods x nodes x cards, stage by stage
+    for stage in ("score", "fit"):
+        cells = sum(e["args"]["pods"] * e["args"]["nodes"] * e["args"]["cards"]
+                    for e in cards if e["args"]["stage"] == stage)
+        assert sched.ctr_card_cells.value(stage=stage) == cells
+        assert (stage in stages) == (cells > 0)
+    assert sum(m.card_cells for m in ms) == sum(
+        e["args"]["pods"] * e["args"]["nodes"] * e["args"]["cards"] for e in cards)
+    # CUDA events time the regions; on the CPU there are none to read
+    assert all(m.card_seconds == 0.0 for m in ms)
+    assert sched.ctr_card_seconds.breakdown() == {}
+    if stages:
+        assert f'yoda_tpu_card_cells_total{{stage="fit"}} ' in "\n".join(sched.ctr_card_cells.render())
+
+
+@pytest.mark.parametrize("windows_per_cycle", [4, 1], ids=["backlog", "single"])
+def test_torch_spans_off_card_decisions_bitwise(tmp_path, windows_per_cycle):
+    """Under the card policy, spans off and on: the same bindings and cell
+    counts, no span collected; the engine alone, bare, under a handle
+    without spans and under one with them: node_idx, feasible and
+    free_after bitwise equal."""
+    kw = dict(gpu=True, policy="card", max_windows_per_cycle=windows_per_cycle)
+    off, off_running = make_sched(None, **kw)
+    on, on_running = make_sched(str(tmp_path / "spans"), **kw)
+    ms_off = drive(off, off_running, gen_host_pods(96, seed=1, gpu=True), cycles=4)
+    ms_on = drive(on, on_running, gen_host_pods(96, seed=1, gpu=True), cycles=4)
+    assert off.spans is None
+    assert [m.card_cells for m in ms_off] == [m.card_cells for m in ms_on]
+    assert sum(m.card_cells for m in ms_off) > 0
+    assert ([(b.pod.name, b.node_name) for b in off.binder.bindings]
+            == [(b.pod.name, b.node_name) for b in on.binder.bindings])
+
+    sched, _ = make_sched(None, **kw)
+    window = gen_host_pods(16, seed=2, gpu=True)
+    nodes, running, utils = sched.list_nodes(), [], sched.advisor.fetch()
+    snap = sched.builder.build_snapshot(nodes, utils, running, pending_pods=window)
+    batch = sched.builder.build_pod_batch(window)
+    opts = sched._engine_options(window, nodes, running, batch, snap)
+    assert opts["policy"] == "card" and not opts["fused"]
+    engine = TorchEngine(device="cpu")
+    bare = engine.schedule_batch(snap, batch, **opts)
+    with observe.engine_trace(None, 4) as counted:
+        quiet = engine.schedule_batch(snap, batch, **opts)
+    ss = observe.SpanSet(1)
+    with observe.engine_trace(ss, 4) as traced:
+        loud = engine.schedule_batch(snap, batch, **opts)
+    assert counted.card_cells == traced.card_cells and set(traced.card_cells) == {"score", "fit"}
+    assert not counted.card_events and not traced.card_events
+    assert [n for n, *_ in ss.spans].count("card_path") == 2
+    for got in (quiet, loud):
+        for field in ("node_idx", "feasible", "free_after"):
+            assert torch.equal(getattr(bare, field), getattr(got, field))
+
+
+def test_torch_spans_card_events_fold_after_the_read():
+    """The host folds an engine call's card event pairs (elapsed ms) into
+    CycleMetrics.card_seconds and card_device_seconds_total{stage}, beside
+    its cells and rounds."""
+    from kubernetes_scheduler_tpu_torch.host.scheduler import CycleMetrics
+
+    class Event:
+        def __init__(self, ms):
+            self.ms = ms
+
+        def elapsed_time(self, end):
+            return end.ms - self.ms
+
+    sched, _ = make_sched(None)
+    trace = observe.EngineTrace(None, 8)
+    trace.card_cells = {"score": 40, "fit": 40}
+    trace.card_events = [("score", Event(1.0), Event(4.0)), ("fit", Event(4.0), Event(4.5)),
+                         ("score", Event(5.0), Event(7.0))]
+    m = CycleMetrics()
+    sched._fold_engine_trace(m, trace)
+    assert m.card_cells == 80 and m.card_seconds == pytest.approx(5.5e-3)
+    assert sched.ctr_card_seconds.value(stage="score") == pytest.approx(5e-3)
+    assert sched.ctr_card_seconds.value(stage="fit") == pytest.approx(0.5e-3)
+    assert sched.ctr_card_cells.breakdown() == {("score",): 40, ("fit",): 40}
+    sched._fold_engine_trace(m, None)
+    assert m.card_cells == 80 and m.auction_rounds == 0
