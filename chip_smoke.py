@@ -63,7 +63,15 @@ Phases; the first failure exits non-zero and no result line is printed:
    auction, each equal to its plain run and breaking no hard affinity,
    anti-affinity or reverse-avoider constraint in its final placements;
    then both greedy scans on one window under torch's sync debug mode,
-   which must see no host read;
+   which must see no host read; then the affinity auction's captured
+   blocks (run_round_graph): windows of scheduler_perf's
+   SchedulingPodAntiAffinity at 5,000 nodes (1,024 pods x 8,192 nodes,
+   one anti-affinity selector on the hostname), ROUND_GRAPH_WINDOWS of one
+   shape with other contents (the first captures a CUDA graph, the rest
+   replay it), one of a new shape and one in the scatter forms of
+   eviction and fold, node_idx, free_after and the rounds
+   run bitwise the eager loop's, ms a window of both paths, and one eager
+   block of rounds under the sync debug mode, which must see no host read;
 7. small clusters scheduled on the card must equal the port's CPU path
    (which the tests hold against the JAX reference), for the auction,
    greedy, and both assigners with affinity, and greedy on fault C1's
@@ -219,6 +227,11 @@ crosses cards; the same checks hold. Its last line is the result line.
 
 builds the kernels and runs phase 23 alone, with the same checks; its
 last line is the result line.
+
+    python3 chip_smoke.py --round-graph
+
+builds the kernels and runs phase 6's captured blocks alone, with the
+same checks; its last line is the result line.
 """
 
 from __future__ import annotations
@@ -264,6 +277,7 @@ AFFINITY_KW = {
     "auction": dict(SLICE_KW, affinity_aware=True),
 }
 AFFINITY_WINDOWS = 5   # constraints-5kx5k: 5,000 pods padded to 5 x 1,024
+ROUND_GRAPH_WINDOWS = 4  # anti-affinity windows of one shape, then one of another
 # the reference bench's production score (bench.py's weighted
 # multi-scorer row): yoda at weight 2 beside the k8s 1.22 default scorers
 MULTI_SCORER = (
@@ -1333,6 +1347,77 @@ def check_greedy_host_reads(torch, port, dev) -> None:
             torch.cuda.set_sync_debug_mode(0)
         emit({"phase": f"host_reads_{name}", "pods": 256, "nodes": 5_000,
               "n_assigned": int(out.n_assigned), "host_syncs_detected": 0})
+
+
+def run_round_graph(torch, port, dev) -> None:
+    """Phase 6c: the affinity head's rounds as captured blocks (one CUDA
+    graph a block of CHECK_EVERY rounds, ops/assign.RoundGraphCache)
+    against the eager loop (`_plain=True`), on windows of
+    SchedulingPodAntiAffinity at 5,000 nodes: ROUND_GRAPH_WINDOWS of 1,000
+    pods in 1,024 (the first captures, the rest hit), then 500 pods in 512
+    (a new shape captures), then 1,000 pods with eviction and fold in
+    their scatter forms (another capture); node_idx and free_after
+    bitwise, the same rounds run. Wall ms of each call, synchronised (the eager call first).
+    Then one eager block under torch.cuda.set_sync_debug_mode("error"),
+    which raises on a synchronising call (a prototype detector: it does
+    not see every kind of sync)."""
+    assign, gen, engine_trace = port["assign"], port["gen_anti_affinity_window"], port["engine_trace"]
+    cache = assign.RoundGraphCache()
+    real = assign._graph_cache, assign.DENSE_EVICT_BUDGET, assign.DENSE_FOLD_BUDGET
+    assign._graph_cache = lambda device: cache
+    rows = []
+    try:
+        cases = [dict(seed=20 + i) for i in range(ROUND_GRAPH_WINDOWS)]
+        for case in cases + [dict(seed=30, pods=500, window=512), dict(seed=31, scatter=True)]:
+            case = dict(case)
+            if case.pop("scatter", False):
+                # the representative-row scatter forms of eviction and fold
+                assign.DENSE_EVICT_BUDGET = assign.DENSE_FOLD_BUDGET = 0
+            args, aff = gen(device=dev, **case)
+            timed = {}
+            for name, kw in (("eager", {"_plain": True}), ("graph", {})):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with engine_trace(None) as trace:
+                    out = assign.auction_assign(*args, affinity=aff, **kw)
+                torch.cuda.synchronize()
+                timed[name] = (out, trace, (time.perf_counter() - t0) * 1e3)
+            (eager, te, eager_ms), (got, tg, graph_ms) = timed["eager"], timed["graph"]
+            if not (same(torch, got.node_idx, eager.node_idx)
+                    and same(torch, got.free_after.view(torch.int32),
+                             eager.free_after.view(torch.int32))
+                    and tg.auction_rounds == te.auction_rounds):
+                fail(f"round graph {case}: the replayed blocks differ from the eager loop "
+                     f"(rounds {tg.auction_rounds} / {te.auction_rounds})")
+            rows.append({"forms": "scatter" if assign.DENSE_FOLD_BUDGET == 0 else "dense",
+                         "window": int(args[0].shape[0]), "pods": int(args[5].sum()),
+                         "nodes": int(aff.node_mask.sum()), "node_axis": int(args[0].shape[1]),
+                         "rounds": tg.auction_rounds, "blocks": tg.graph_blocks,
+                         "graph_rounds": tg.graph_rounds, "n_assigned": int(got.n_assigned),
+                         "eager_ms": eager_ms, "graph_ms": graph_ms})
+    finally:
+        assign._graph_cache, assign.DENSE_EVICT_BUDGET, assign.DENSE_FOLD_BUDGET = real
+    outcomes = [set(r["blocks"]) for r in rows]
+    want = [{"capture"}] + [{"hit"}] * (ROUND_GRAPH_WINDOWS - 1) + [{"capture"}] * 2
+    if outcomes != want:
+        fail(f"round graph outcomes {outcomes}, not {want}")
+    args, aff = gen(device=dev, seed=40)
+    inv, st = assign._round_operands(*args, 1.0, aff)
+    st = assign._affinity_round(inv, st, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(assign.CHECK_EVERY):
+            st = assign._affinity_round(inv, st, 1.0)
+    except RuntimeError as e:
+        fail(f"an eager block of the affinity head synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    hits = [r for r in rows if "hit" in r["blocks"]]
+    emit({"phase": "affinity_round_graph", "windows": rows, "equal_to_eager": True,
+          "eager_ms_median": statistics.median(r["eager_ms"] for r in rows),
+          "hit_graph_ms_median": statistics.median(r["graph_ms"] for r in hits),
+          "block_host_syncs_detected": 0})
 
 
 def decisions_match(torch, port, got, want, pods, assigner: str) -> str:
@@ -4107,6 +4192,7 @@ def load_port() -> dict:
             gen_host_pods,
             gen_pods,
         )
+        from kubernetes_scheduler_tpu_torch.sim.cluster_gen import gen_anti_affinity_window
         from kubernetes_scheduler_tpu_torch.sim.scenarios import (
             SCENARIOS,
             run,
@@ -4118,6 +4204,7 @@ def load_port() -> dict:
             spmd_mutants,
         )
         from kubernetes_scheduler_tpu_torch.trace import analyze, inspect
+        from kubernetes_scheduler_tpu_torch.trace.engine_context import engine_trace
         from kubernetes_scheduler_tpu_torch.trace.replay import (
             engine_kw_from_record,
             pod_batch_from_record,
@@ -4160,6 +4247,7 @@ def load_port() -> dict:
         server=server, compute_scores=compute_scores,
         kernel_budget=kernel_budget, contracts=contracts, spmd_mutants=spmd_mutants,
         bench=bench, schedule_windows=schedule_windows,
+        gen_anti_affinity_window=gen_anti_affinity_window, engine_trace=engine_trace,
     )
     return port
 
@@ -4257,6 +4345,8 @@ def main() -> None:
                          f"{MESH_SHARDS} cards")
     ap.add_argument("--bench", action="store_true",
                     help="run phase 23 (the port's bench) alone")
+    ap.add_argument("--round-graph", action="store_true",
+                    help="run phase 6's captured blocks of the affinity auction alone")
     args = ap.parse_args()
     try:
         import torch
@@ -4297,6 +4387,10 @@ def main() -> None:
         run_mesh_cards(torch, port, snap, pods)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
         return
+    if args.round_graph:
+        run_round_graph(torch, port, torch.device("cuda", 0))
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+        return
     if args.bench:
         t0 = time.perf_counter()
         run_bench(torch, port, dev)
@@ -4332,6 +4426,7 @@ def main() -> None:
     # ---- 6. the affinity paths on constraints-5kx5k ---------------------
     run_affinity(torch, port, dev)
     check_greedy_host_reads(torch, port, dev)
+    run_round_graph(torch, port, dev)
 
     # ---- 7. the new options, card vs the port's CPU path ----------------
     t0 = time.perf_counter()

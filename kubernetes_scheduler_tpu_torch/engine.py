@@ -1050,12 +1050,14 @@ def _schedule_batch(
     and the auction's rounds run K3 when affinity_aware=False; with
     affinity_aware=True the count-based selector families leave the
     static mask and the assigner enforces them against live in-window
-    counts (plain PyTorch, as the reference's XLA bodies). `layout`: a
+    counts (plain PyTorch, as the reference's XLA bodies; on a CUDA
+    device the auction replays them as CUDA graphs, ops/assign). `layout`: a
     resident FusedLayout (TorchEngine.schedule_resident), whose node
     operands K2 and K1 take; consulted on the fused path only.
 
-    `_plain=True` runs every kernel's plain PyTorch version instead, on
-    any device, to hold the kernel path against it."""
+    `_plain=True` runs every kernel's plain PyTorch version instead, and
+    the affinity auction's rounds eagerly, on any device, to hold the
+    kernel path against it."""
     if assigner not in ASSIGNERS:
         raise ValueError(f"assigner must be one of {ASSIGNERS}, not {assigner!r}")
     include_pod_affinity = not affinity_aware

@@ -375,6 +375,10 @@ SHIPPED_METRICS = (
     # counterpart of kube-scheduler's scheduler_pending_pods)
     "auction_rounds_total",
     "pending_pods_count",
+    # the affinity auction's blocks of rounds replayed as one CUDA graph,
+    # by outcome (`outcome`: hit = captured by an earlier engine call /
+    # capture = by this one; ops/assign.RoundGraphCache)
+    "auction_graph_blocks_total",
     # the engine's GPU-card path by stage (`stage`: score / fit): pods x
     # nodes x card slots from the shapes (engine.card_region through
     # ENGINE_TRACE, no device read), and its device seconds from CUDA
@@ -574,9 +578,13 @@ PORT_SPANS = (
     # count fold), or one direct engine.schedule_batch (args pods, window)
     "engine_window",
     # the whole of ops/assign.auction_assign (args rounds, head), and
-    # each round's dispatch through the any-bid read
+    # each eager round's dispatch through the any-bid read
     "auction",
     "auction_round",
+    # one replay of a captured block of the affinity head's rounds (a
+    # CUDA graph) through its any-bid read (args rounds, outcome: hit /
+    # capture); only on a CUDA device
+    "auction_block",
     # one region of the GPU-card path inside an `engine_window`
     # (engine.card_region; args pods, nodes, cards, stage: score / fit),
     # only where the snapshot holds cards

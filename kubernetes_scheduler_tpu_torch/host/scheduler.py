@@ -200,6 +200,10 @@ class CycleMetrics:
     # scheduling queue once the cycle popped its window
     auction_rounds: int = 0
     queue_pending: int = 0
+    # of auction_rounds, those the affinity head ran by replaying a CUDA
+    # graph of a block of rounds that an earlier engine call captured
+    # (ops/assign.RoundGraphCache; 0 off the card)
+    auction_graph_rounds: int = 0
     # the GPU-card path over this cycle's engine calls (engine.card_region
     # through observe.ENGINE_TRACE; 0 where the snapshot holds no card):
     # pods x nodes x card slots of its regions (host counts from the
@@ -625,6 +629,13 @@ class Scheduler:
             "affinity: the per-round affinity masks)",
             labels=("head",),
         )
+        self.ctr_graph_blocks = Counter(
+            "auction_graph_blocks_total",
+            "Blocks of the affinity auction's rounds replayed as one CUDA "
+            "graph, by outcome (hit: captured by an earlier engine call; "
+            "capture: by this one)",
+            labels=("outcome",),
+        )
         self.gauge_pending = Gauge(
             "pending_pods_count",
             "Pods left in the scheduling queue at the latest cycle's pop",
@@ -645,6 +656,7 @@ class Scheduler:
             self.hist_cycle, self.hist_engine, self.ctr_uploads,
             self.ctr_shard_bytes, self.ctr_slo, self.ctr_rounds,
             self.gauge_pending, self.ctr_card_cells, self.ctr_card_seconds,
+            self.ctr_graph_blocks,
         ) + (self.mirror.collectors if self.mirror is not None else ())
         # SLO watchdog state (config.cycle_slo_ms): run totals, the last
         # breach's identity (trace id + flight-recorder seq — the two
@@ -1841,7 +1853,8 @@ class Scheduler:
         """Account what an engine call reported through
         observe.ENGINE_TRACE, once its result has been read: the auction
         rounds (none for an engine that runs no auction in this process:
-        the greedy assigner, a sidecar, the sharded mesh) and the card
+        the greedy assigner, a sidecar, the sharded mesh), its replayed
+        blocks of rounds and the rounds they ran, and the card
         path's cells and device seconds. The result's read waited on the
         card, so the card path's events are complete and reading them
         adds no synchronisation."""
@@ -1850,6 +1863,9 @@ class Scheduler:
         if trace.auction_rounds:
             m.auction_rounds += trace.auction_rounds
             self.ctr_rounds.inc(trace.auction_rounds, head=trace.head)
+        m.auction_graph_rounds += trace.graph_rounds
+        for outcome, blocks in trace.graph_blocks.items():
+            self.ctr_graph_blocks.inc(blocks, outcome=outcome)
         for stage, cells in trace.card_cells.items():
             m.card_cells += cells
             self.ctr_card_cells.inc(cells, stage=stage)

@@ -13,18 +13,23 @@ the price-guided parallel auction, and the in-window inter-pod
   cumulative request fits; nodes that rejected bidders raise their price.
   Without affinity the round's bid head is kernel K3
   (ops/fused.auction_bid); with affinity the bid mask is recomputed per
-  round against live counts and same-round conflicts are evicted.
+  round against live counts and same-round conflicts are evicted; on a
+  CUDA device those rounds replay as captured CUDA graphs, one a block of
+  CHECK_EVERY rounds (RoundGraphCache).
 
 Both return -1 for pods that fit nowhere. Neither reads the device from
 the host per pod; the auction reads one any-bid flag every CHECK_EVERY
 rounds. Under a published ENGINE_TRACE (trace/engine_context) the
-auction counts its rounds there and, with spans on, adds an `auction`
-span and one `auction_round` span a round.
+auction counts its rounds and replayed blocks there and, with spans on,
+adds an `auction` span, one `auction_round` span an eager round and one
+`auction_block` span a replayed block.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -526,6 +531,276 @@ def _fold_round(aff: AffinityState, admitted, bid, added, added_avoid):
     )
 
 
+class _RoundInputs(NamedTuple):
+    """The affinity head's round-invariant inputs."""
+
+    sj: torch.Tensor         # [p, n] auction_values
+    feasible: torch.Tensor   # [p, n] bool
+    req: torch.Tensor        # [p, r] float32
+    by_prio: torch.Tensor    # [p] priority order
+    prio_key: torch.Tensor   # [p] int32 conflict-group rank key
+    pod_mask: torch.Tensor   # [p] bool
+    aff: AffinityState
+
+
+class _RoundState(NamedTuple):
+    """What one auction round hands the next."""
+
+    assigned: torch.Tensor     # [p] int32, node or -1
+    free: torch.Tensor         # [n, r] float32
+    price: torch.Tensor        # [n] float32
+    added: torch.Tensor        # [n, S] in-window matches, per-node expanded
+    added_avoid: torch.Tensor  # [n, S] in-window avoiders, the same layout
+    has_bid: torch.Tensor      # [p] bool, the round's bidders
+
+
+def _settle_round(bid, has_bid, admitted, req, assigned, free, price, price_frac):
+    """(assigned, free, price) after a round: admitted pods take their bid
+    node and its capacity; a node that rejected any bid raises its price
+    by price_frac."""
+    assigned = torch.where(admitted, bid, assigned)
+    bid_l = bid.long()
+    used = torch.zeros_like(free).index_add_(
+        0, bid_l, torch.where(admitted[:, None], req, 0.0)
+    )
+    rejected = torch.zeros(free.shape[0], dtype=torch.int32, device=free.device)
+    rejected.scatter_reduce_(0, bid_l, (has_bid & ~admitted).to(torch.int32), "amax")
+    return assigned, free - used, price + torch.where(rejected > 0, price_frac, 0.0)
+
+
+def _affinity_round(inv: _RoundInputs, st: _RoundState, price_frac: float) -> _RoundState:
+    """One round of the affinity head: the capacity mask and
+    _affinity_round_mask against live counts gate `values - price`; the
+    argmax bids; admission, then the eviction of same-round conflicts
+    (_evict_round_conflicts) and the fold of the survivors into the count
+    tables (_fold_round). The eager loop and the captured block both run
+    it. It reads nothing back to the host and writes none of its inputs."""
+    req, free = inv.req, st.free
+    active = inv.pod_mask & (st.assigned < 0)
+    cap_ok = ((req[:, None, :] <= free[None, :, :]) | (req[:, None, :] == 0)).all(-1)
+    mask = inv.feasible & cap_ok & active[:, None]
+    mask &= _affinity_round_mask(inv.aff, st.added, st.added_avoid)
+    row = torch.where(mask, inv.sj - st.price[None, :], NEG)
+    bid = torch.argmax(row, dim=1).to(torch.int32)
+    has_bid = mask.any(dim=1)
+    admitted = _segmented_admission(bid, has_bid, req, free, inv.by_prio)
+    admitted &= ~_evict_round_conflicts(inv.aff, admitted, bid, inv.prio_key, st.added)
+    added, added_avoid = _fold_round(inv.aff, admitted, bid, st.added, st.added_avoid)
+    assigned, free, price = _settle_round(
+        bid, has_bid, admitted, req, st.assigned, free, st.price, price_frac
+    )
+    return _RoundState(assigned, free, price, added, added_avoid, has_bid)
+
+
+# ---- the affinity head's rounds as captured blocks --------------------------
+
+# captured blocks kept for each process; a shape that churns evicts the
+# least recently used, so the graphs' memory stays bounded
+GRAPH_CACHE_ENTRIES = 4
+
+
+def _input_tensors(inv: _RoundInputs) -> tuple:
+    return (*inv[:-1], *inv.aff)
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class CudaBlockGraph:
+    """A block of rounds as one torch.cuda.CUDAGraph. `capture` runs
+    `warm` (one eager round, so that lazy set-up such as a cuBLAS
+    workspace happens outside the capture) and records `block` on a side
+    stream; capture errors raise and are limited to this thread's calls
+    (other threads may run engine calls meanwhile). `replay` launches the
+    recorded kernels on the current stream."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self, block, warm) -> None:
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            warm()
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+            block()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _RoundBlock:
+    """CHECK_EVERY affinity rounds captured once: static copies of the
+    round-invariant inputs and of the carried state, which the block
+    reads and rewrites in place, and its any-bid flag (the last round's
+    has_bid.any()). `lock` is held from a call's load to its last read,
+    so one call at a time owns the buffers; every engine call runs on the
+    device's default stream, so the next call's load queues behind the
+    last one's reads."""
+
+    def __init__(self, graph, inv: _RoundInputs, st: _RoundState, price_frac: float):
+        self.inv = _RoundInputs(*map(_fresh, inv[:-1]), AffinityState(*map(_fresh, inv.aff)))
+        self.state = _RoundState(*map(_fresh, st))
+        self.flag = torch.zeros((), dtype=torch.bool, device=inv.sj.device)
+        self.price_frac = price_frac
+        self.lock = threading.Lock()
+        self.graph = graph
+        graph.capture(self._block, self._warm)
+
+    def _warm(self) -> None:
+        _affinity_round(self.inv, self.state, self.price_frac)
+
+    def _block(self) -> None:
+        st = self.state
+        for _ in range(CHECK_EVERY):
+            st = _affinity_round(self.inv, st, self.price_frac)
+        for buf, new in zip(self.state, st):
+            buf.copy_(new)
+        self.flag.copy_(st.has_bid.any())
+
+    def load(self, inv: _RoundInputs, st: _RoundState) -> None:
+        for buf, t in zip(_input_tensors(self.inv), _input_tensors(inv)):
+            buf.copy_(t)
+        for buf, t in zip(self.state, st):
+            buf.copy_(t)
+
+
+def _block_key(inv: _RoundInputs, st: _RoundState, price_frac: float) -> tuple:
+    """Everything that fixes a block's kernels: the device, every input's
+    and state tensor's shape and dtype, the dense or scatter forms that
+    _evict_conflicts_core and _fold_round take at these sizes, and the
+    price step (a constant of the captured kernels)."""
+    p, s = inv.aff.pod_matches.shape
+    n = inv.aff.domain_counts.shape[0]
+    return (
+        str(inv.sj.device), price_frac,
+        p * p * s <= DENSE_EVICT_BUDGET, p * n * s <= DENSE_FOLD_BUDGET,
+        tuple((tuple(t.shape), t.dtype) for t in (*_input_tensors(inv), *st)),
+    )
+
+
+class RoundGraphCache:
+    """Captured blocks by _block_key, at most `entries`, the least
+    recently used evicted first. `make_graph(device)` builds a block's
+    graph: CudaBlockGraph on a CUDA device; the tests hand a stand-in
+    that replays the captured Python."""
+
+    def __init__(self, make_graph=CudaBlockGraph, entries: int = GRAPH_CACHE_ENTRIES):
+        self._make_graph = make_graph
+        self._entries = entries
+        self._blocks: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._blocks)
+
+    def block(self, inv: _RoundInputs, st: _RoundState, price_frac: float):
+        """(block, "hit") for a shape captured before, else (a block
+        captured now, "capture"). A capture that fails raises."""
+        key = _block_key(inv, st, price_frac)
+        with self._lock:
+            blk = self._blocks.get(key)
+            if blk is not None:
+                self._blocks.move_to_end(key)
+                return blk, "hit"
+        blk = _RoundBlock(self._make_graph(inv.sj.device), inv, st, price_frac)
+        with self._lock:
+            self._blocks[key] = blk
+            while len(self._blocks) > self._entries:
+                self._blocks.popitem(last=False)
+        return blk, "capture"
+
+
+_CUDA_GRAPHS = RoundGraphCache()
+
+
+def _graph_cache(device: torch.device) -> RoundGraphCache | None:
+    """The cache of captured blocks for a CUDA device; None elsewhere
+    (the CPU runs the rounds eagerly)."""
+    return _CUDA_GRAPHS if device.type == "cuda" else None
+
+
+def _eager_rounds(step, st: _RoundState, first: int, rounds: int, starts):
+    """(state, rounds run) after rounds first .. rounds - 1 of `step`,
+    stopping after a round rnd with (rnd + 1) % CHECK_EVERY == 0 in which
+    no pod bid. With `starts` (a list), each round's start is appended."""
+    rnd = first - 1
+    for rnd in range(first, rounds):
+        if starts is not None:
+            starts.append(time.perf_counter())
+        st = step(st)
+        # graftlint: disable=host-transfer -- the auction's exit test: one flag read every CHECK_EVERY rounds, the host loop's only read per round block
+        if (rnd + 1) % CHECK_EVERY == 0 and not bool(st.has_bid.any()):
+            break
+    return st, rnd + 1 - first
+
+
+def _graphed_rounds(blk: _RoundBlock, outcome: str, inv, st, rounds: int, starts, trace):
+    """(assigned, free, rounds run) through a captured block: whole blocks
+    replayed, the flag read after each, the rounds past the last whole
+    block eager; the same rounds and stopping rule as _eager_rounds. With
+    a `trace`, the replayed blocks are counted under `outcome` and, on a
+    hit, their rounds as graph rounds; with spans there, each replay is
+    one `auction_block` span, to the end of its flag read."""
+    spans = None if trace is None else trace.spans
+    with blk.lock:
+        blk.load(inv, st)
+        out, run, blocks = blk.state, 0, 0
+        for _ in range(rounds // CHECK_EVERY):
+            t0 = time.perf_counter() if spans is not None else 0.0
+            blk.graph.replay()
+            # graftlint: disable=host-transfer -- the auction's exit test: the block's one flag read, as the eager loop's every CHECK_EVERY rounds
+            any_bid = bool(blk.flag)
+            blocks += 1
+            run += CHECK_EVERY
+            if spans is not None:
+                spans.add("auction_block", t0, time.perf_counter(),
+                          rounds=CHECK_EVERY, outcome=outcome)
+            if not any_bid:
+                break
+        else:
+            out, tail = _eager_rounds(lambda s: _affinity_round(blk.inv, s, blk.price_frac),
+                                      blk.state, run, rounds, starts)
+            run += tail
+        assigned, free = out.assigned.clone(), out.free.clone()
+    if trace is not None:
+        trace.graph_blocks[outcome] = trace.graph_blocks.get(outcome, 0) + blocks
+        if outcome == "hit":
+            trace.graph_rounds += blocks * CHECK_EVERY
+    return assigned, free, run
+
+
+def _round_operands(scores, feasible, pod_request, node_free, priority, pod_mask,
+                    price_frac: float, affinity: AffinityState | None):
+    """(round-invariant inputs, start state) of the auction's rounds. With
+    `affinity`, the conflict groups' rank key (p - priority rank) and
+    count tables and bidders that start at zero; without, those are None
+    (K3's head needs none)."""
+    p, n = scores.shape
+    dev = scores.device
+    sj = auction_values(scores, feasible, price_frac)
+    by_prio = _priority_order(priority, pod_mask)
+    req = pod_request.to(torch.float32).contiguous()
+    st = _RoundState(
+        assigned=torch.full((p,), -1, dtype=torch.int32, device=dev),
+        free=node_free.to(torch.float32),
+        price=torch.zeros(n, dtype=torch.float32, device=dev),
+        added=None, added_avoid=None, has_bid=None,
+    )
+    prio_key = None
+    if affinity is not None:
+        rank = torch.empty(p, dtype=torch.int32, device=dev)
+        rank[by_prio] = torch.arange(p, dtype=torch.int32, device=dev)
+        prio_key = p - rank
+        st = st._replace(added=torch.zeros_like(affinity.domain_counts),
+                         added_avoid=torch.zeros_like(affinity.domain_counts),
+                         has_bid=torch.zeros(p, dtype=torch.bool, device=dev))
+    return _RoundInputs(sj, feasible, req, by_prio, prio_key, pod_mask, affinity), st
+
+
 def auction_assign(
     scores: torch.Tensor,
     feasible: torch.Tensor,
@@ -546,11 +821,17 @@ def auction_assign(
 
     Without `affinity` the round's bid head is K3 over the
     round-invariant values of auction_values. With `affinity` the head
-    is plain PyTorch: the capacity mask and _affinity_round_mask against
-    live counts (base + permanent in-window placements) gate
-    `values - price`; after admission, same-round conflicts are evicted
-    (_evict_round_conflicts) and the survivors are folded into the count
-    tables (_fold_round), which start at zero.
+    is plain PyTorch (_affinity_round): the capacity mask and
+    _affinity_round_mask against live counts (base + permanent in-window
+    placements) gate `values - price`; after admission, same-round
+    conflicts are evicted (_evict_round_conflicts) and the survivors are
+    folded into the count tables (_fold_round), which start at zero. On a
+    CUDA device the affinity head's rounds run as captured blocks of
+    CHECK_EVERY rounds (one CUDA graph a block, captured at the first
+    call of a shape, RoundGraphCache) replayed with one flag read a
+    block; the rounds past the last whole block, and every round on
+    other devices, run eagerly. Both run the same round body, so the
+    decisions are the same.
 
     Stops when no active pod can bid (the assignment is maximal) or
     after `rounds`. The host reads the any-bid flag every CHECK_EVERY
@@ -562,82 +843,63 @@ def auction_assign(
     to stopping at the first such round, as the reference's while_loop
     does.
 
-    `_plain=True` routes the bid head through K3's plain PyTorch version
-    on any device (for holding the kernel path against it on the card).
+    `_plain=True` runs every round eagerly and routes the bid head
+    through K3's plain PyTorch version on any device (for holding the
+    kernel and the captured blocks against them on the card).
 
     Under a published ENGINE_TRACE (trace/engine_context) the rounds
     run (the host loop's count, no device read) are added to its
     `auction_rounds`, with the bid head ("k3" or "affinity") as its
-    `head`; with a SpanSet there, the call is one `auction` span and
-    each round one `auction_round` span, from the top of the round to
-    the end of its any-bid read.
+    `head`, the rounds run by replaying a block an earlier call captured
+    to `graph_rounds`, and the replayed blocks by outcome ("hit": captured
+    by an earlier call; "capture": by this one) to `graph_blocks`; with a
+    SpanSet there, the call is one `auction` span, each eager round one
+    `auction_round` span, from the top of the round to the end of its
+    any-bid read, and each replayed block one `auction_block` span.
     """
     from kubernetes_scheduler_tpu_torch.ops.fused import auction_bid
 
     trace = ENGINE_TRACE.get()
     spans = None if trace is None else trace.spans
-    p, n = scores.shape
-    dev = scores.device
-    sj = auction_values(scores, feasible, price_frac)
-    by_prio = _priority_order(priority, pod_mask)
-    req = pod_request.to(torch.float32).contiguous()
-
-    assigned = torch.full((p,), -1, dtype=torch.int32, device=dev)
-    free = node_free.to(torch.float32)
-    price = torch.zeros(n, dtype=torch.float32, device=dev)
-    if affinity is not None:
-        # round-invariant rank key of the conflict groups: p - priority rank
-        rank = torch.empty(p, dtype=torch.int32, device=dev)
-        rank[by_prio] = torch.arange(p, dtype=torch.int32, device=dev)
-        prio_key = p - rank
-        added = torch.zeros_like(affinity.domain_counts)
-        added_avoid = torch.zeros_like(affinity.domain_counts)
-    # each round's start, with spans on; a round ends where the next
-    # starts, the last where the loop exits
+    inv, st = _round_operands(
+        scores, feasible, pod_request, node_free, priority, pod_mask, price_frac, affinity
+    )
+    # each eager round's start, with spans on; a round ends where the
+    # next starts, the last where the loop exits
     starts = None
     if spans is not None:
         starts, t_auction = [], time.perf_counter()
-    rnd = -1
-    for rnd in range(rounds):
-        if starts is not None:
-            starts.append(time.perf_counter())
-        active = pod_mask & (assigned < 0)
-        if affinity is None:
-            bid, has_bid = auction_bid(sj, price, active, req, free, _plain=_plain)
-        else:
-            cap_ok = (
-                (req[:, None, :] <= free[None, :, :]) | (req[:, None, :] == 0)
-            ).all(-1)
-            mask = feasible & cap_ok & active[:, None]
-            mask &= _affinity_round_mask(affinity, added, added_avoid)
-            row = torch.where(mask, sj - price[None, :], NEG)
-            bid = torch.argmax(row, dim=1).to(torch.int32)
-            has_bid = mask.any(dim=1)
-        admitted = _segmented_admission(bid, has_bid, req, free, by_prio)
-        if affinity is not None:
-            admitted &= ~_evict_round_conflicts(affinity, admitted, bid, prio_key, added)
-            added, added_avoid = _fold_round(affinity, admitted, bid, added, added_avoid)
-        assigned = torch.where(admitted, bid, assigned)
-        bid_l = bid.long()
-        used = torch.zeros_like(free).index_add_(
-            0, bid_l, torch.where(admitted[:, None], req, 0.0)
-        )
-        rejected = torch.zeros(n, dtype=torch.int32, device=dev)
-        rejected.scatter_reduce_(0, bid_l, (has_bid & ~admitted).to(torch.int32), "amax")
-        free = free - used
-        price = price + torch.where(rejected > 0, price_frac, 0.0)
-        # graftlint: disable=host-transfer -- the auction's exit test: one flag read every CHECK_EVERY rounds, the host loop's only read per round block
-        if (rnd + 1) % CHECK_EVERY == 0 and not bool(has_bid.any()):
-            break
+    graphs = None
+    if affinity is not None and not _plain and rounds >= CHECK_EVERY:
+        graphs = _graph_cache(scores.device)
+    if affinity is None:
+        def step(s: _RoundState) -> _RoundState:
+            active = pod_mask & (s.assigned < 0)
+            bid, has_bid = auction_bid(inv.sj, s.price, active, inv.req, s.free, _plain=_plain)
+            admitted = _segmented_admission(bid, has_bid, inv.req, s.free, inv.by_prio)
+            assigned, free, price = _settle_round(
+                bid, has_bid, admitted, inv.req, s.assigned, s.free, s.price, price_frac
+            )
+            return _RoundState(assigned, free, price, None, None, has_bid)
+
+        st, run = _eager_rounds(step, st, 0, rounds, starts)
+        assigned, free = st.assigned, st.free
+    elif graphs is None:
+        st, run = _eager_rounds(lambda s: _affinity_round(inv, s, price_frac),
+                                st, 0, rounds, starts)
+        assigned, free = st.assigned, st.free
+    else:
+        blk, outcome = graphs.block(inv, st, price_frac)
+        assigned, free, run = _graphed_rounds(blk, outcome, inv, st, rounds, starts, trace)
     if trace is not None:
         head = "k3" if affinity is None else "affinity"
-        trace.auction_rounds += rnd + 1
+        trace.auction_rounds += run
         trace.head = head
         if spans is not None:
             t_end = time.perf_counter()
             for t0, t1 in zip(starts, starts[1:] + [t_end]):
                 spans.add("auction_round", t0, t1)
-            spans.add("auction", t_auction, t_end, rounds=rnd + 1, head=head)
+            spans.add("auction", t_auction, t_end, rounds=run, head=head)
     return AssignResult(
         node_idx=assigned,
         free_after=free,

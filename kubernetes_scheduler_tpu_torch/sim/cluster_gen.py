@@ -10,6 +10,7 @@ BENCH_CONFIGS are BASELINE.md's five configs.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from kubernetes_scheduler_tpu_torch.engine import (
     PodBatch,
@@ -234,3 +235,58 @@ def gen_config(name: str, *, seed: int = 0, device=None):
     snap = gen_cluster(n_nodes, seed=seed, device=device, **cfg)
     pods = gen_pods(n_pods, seed=seed + 1, device=device, **cfg)
     return snap, pods
+
+
+def gen_anti_affinity_window(
+    pods: int = 1000,
+    nodes: int = 5000,
+    *,
+    running: int = 1000,
+    window: int = 1024,
+    node_axis: int = 8192,
+    seed: int = 0,
+    device=None,
+):
+    """(auction_assign's positional arguments, AffinityState): one window
+    of scheduler_perf's SchedulingPodAntiAffinity as the host loop hands
+    it to the affinity auction: `pods` pods padded to `window`, each
+    labelled color=green with required anti-affinity to color=green on
+    the hostname (one selector, each node its own domain), over `nodes`
+    nodes of node-default.yaml padded to `node_axis`, `running` of them
+    already holding a green pod; seeded node scores, the same for every
+    pod, as for pods alike. Resources are cpu milli,
+    memory MiB, pods and two unrequested ones."""
+    from kubernetes_scheduler_tpu_torch.device import resolve_device
+    from kubernetes_scheduler_tpu_torch.ops.assign import AffinityState
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    node_mask = np.arange(node_axis) < nodes
+    pod_mask = np.arange(window) < pods
+    held = np.zeros(node_axis, np.float32)
+    held[rng.choice(nodes, running, replace=False)] = 1.0
+    free = np.zeros((node_axis, 5), np.float32)
+    free[:nodes, :3] = [4000.0, 32768.0, 110.0]
+    free[:, :3] -= held[:, None] * np.float32([100.0, 500.0, 1.0])
+    req = np.zeros((window, 5), np.float32)
+    req[pod_mask, :3] = [100.0, 500.0, 1.0]
+    # the pods are alike, so every pod scores a node the same
+    scores = np.tile(rng.uniform(0.0, 100.0, node_axis).astype(np.float32), (window, 1))
+    feasible = node_mask[None, :] & pod_mask[:, None]
+    as_t = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+    green = np.broadcast_to(pod_mask[:, None], (window, 1))
+    aff = AffinityState(
+        domain_counts=as_t(held[:, None]),
+        domain_id=as_t(np.arange(node_axis, dtype=np.int32)[:, None]),
+        pod_matches=as_t(green),
+        affinity_sel=as_t(np.full((window, 1), -1, np.int32)),
+        anti_affinity_sel=as_t(np.where(green, 0, -1).astype(np.int32)),
+        avoid_counts=as_t(held[:, None]),
+        pod_has_anti=as_t(green),
+        spread_sel=as_t(np.full((window, 1), -1, np.int32)),
+        spread_max=as_t(np.zeros((window, 1), np.int32)),
+        node_mask=as_t(node_mask),
+    )
+    args = (as_t(scores), as_t(feasible), as_t(req), as_t(free),
+            as_t(np.zeros(window, np.int32)), as_t(pod_mask))
+    return args, aff

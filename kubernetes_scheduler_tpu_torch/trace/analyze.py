@@ -24,8 +24,8 @@ engine step (it is the pipelined loop's hidden work, not a cycle
 cost), and counting it would double-book the overlap window. Sidecar
 stages (deserialize/device_step/serialize/delta_apply) nest inside
 `engine_step` on the other side of the bridge, and the port's engine
-stages (engine_window/auction/auction_round) inside it on this side;
-they get percentiles but never attribution rows, for the same
+stages (engine_window/auction/auction_round/auction_block) inside it on
+this side; they get percentiles but never attribution rows, for the same
 no-double-counting reason. So do the port's `pod_events` bursts, which
 fall between cycles or inside a cycle's residual ("other").
 """
@@ -58,8 +58,8 @@ ATTRIBUTION_STAGES = (
 )
 # reported (percentiles) but never attributed: concurrent with the
 # engine step, nested inside it (across the bridge, or the port's
-# engine_window / auction / auction_round / card_path), or between
-# cycles (the port's pod_events bursts)
+# engine_window / auction / auction_round / auction_block / card_path),
+# or between cycles (the port's pod_events bursts)
 NON_ATTRIBUTED_STAGES = (
     "host_overlap",
     "deserialize",
@@ -70,6 +70,7 @@ NON_ATTRIBUTED_STAGES = (
     "engine_window",
     "auction",
     "auction_round",
+    "auction_block",
     "card_path",
 )
 

@@ -294,7 +294,11 @@ def test_torch_spans_report_attributes_every_cycle(tmp_path):
     for name in observe.PORT_SPANS:
         assert name in analyze.NON_ATTRIBUTED_STAGES
         assert name not in report["attribution_pct"]
-        assert report["stages"][name]["count"] > 0
+        # captured blocks of rounds replay only on a CUDA device
+        # (tests/test_torch_round_graph.py reports them with a stand-in)
+        if name != "auction_block":
+            assert report["stages"][name]["count"] > 0
+    assert "auction_block" not in report["stages"]
 
 
 # policy -> (nodes with cards, the card path's stages in each window)
