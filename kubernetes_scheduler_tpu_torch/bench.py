@@ -1478,7 +1478,7 @@ def loop_rate(
         # compares shard_delta_bytes_per_cycle across node scales.
         delta_cycles = [c for c in cycles if c.shard_delta_bytes]
         per_cycle = [float(sum(c.shard_delta_bytes)) for c in delta_cycles]
-        out["mesh_devices"] = int(getattr(sched.engine, "n_shards", 1))
+        out["mesh_devices"] = int(sched.engine.n_shards)
         out["sharded_cycles"] = int(sum(c.sharded_cycles for c in cycles))
         out["shard_delta_bytes_per_cycle"] = (
             round(float(np.mean(per_cycle)), 1) if per_cycle else 0.0

@@ -26,6 +26,7 @@ from kubernetes_scheduler_tpu_torch import engine
 from kubernetes_scheduler_tpu_torch.bridge import codec
 from kubernetes_scheduler_tpu_torch.bridge import schedule_pb2 as pb
 from kubernetes_scheduler_tpu_torch.bridge.server import MAX_MESSAGE_BYTES, SERVICE
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.host.observe import Counter
 from kubernetes_scheduler_tpu_torch.host.resilience import (
     BackoffPolicy,
@@ -90,7 +91,7 @@ class _FutureSchedule:
 LocalEngine = engine.TorchEngine  # re-export; defined grpc-free in engine.py
 
 
-class RemoteEngine:
+class RemoteEngine(EngineSurface):
     def __init__(
         self,
         target: str,
@@ -191,10 +192,6 @@ class RemoteEngine:
         # sits on a backend that profits from it (the card) — the host's
         # min_max->fused widening keys off this latch; same discipline
         self._fused_min_max_cap: bool | None = None
-        # did the LAST schedule_resident call apply a delta server-side?
-        # (mirrors LocalEngine.resident_used_delta for the host's
-        # delta/full upload metrics)
-        self.resident_used_delta = False
         # lazy single-worker pool for schedule_batch_async: ONE worker
         # because the wire field cache and capability latch are mutated
         # per call, and the pipelined host forces result() before the

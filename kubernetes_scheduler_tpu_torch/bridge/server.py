@@ -137,14 +137,10 @@ class EngineService:
         if engine_override is None:
             engine_override = engine.TorchEngine(device=device)
         self._engine = engine_override
-        self.device = getattr(self._engine, "device", None) or resolve_device(device)
-        # Preempt runs on the dense engine of the same device where the
-        # served one has no preempt (the sharded and learned engines), as
-        # the reference's mesh sidecar runs it on its dense engine
-        self._preempt_engine = (
-            self._engine if hasattr(self._engine, "preempt")
-            else engine.TorchEngine(device=self.device)
-        )
+        self.device = self._engine.device or resolve_device(device)
+        # the dense engine Preempt falls back to where the served one
+        # does not run the pass (built on first need)
+        self._dense_engine = None
         # the engine options a mesh sidecar fixes at startup (policy,
         # assigner, normalizer, fused, score_plugins; auction knobs as
         # defaults): requests asking for anything else fail loud, as the
@@ -207,7 +203,7 @@ class EngineService:
         # mesh-sharded serving (--mesh-devices > 1): RPCs served by the
         # sharded programs, and each applied delta's routed per-shard
         # payload (the sidecar twin of the host's shard_delta_bytes)
-        self.mesh_devices = int(getattr(self._engine, "n_shards", 0))
+        self.mesh_devices = int(self._engine.n_shards)
         self.metrics_sharded = observe.Counter(
             "sharded_cycles_total",
             "RPCs served by this sidecar's mesh-sharded engine",
@@ -635,6 +631,18 @@ class EngineService:
         self._finish_call("schedule_windows", dt, tid, seq, ss)
         return reply
 
+    def _preempt(self, snapshot, pods, victims, k_cap: int):
+        """The served engine's preempt; where it does not run the pass
+        (the sharded and learned engines answer None), the dense engine
+        of the same device does, as the reference's mesh sidecar runs it
+        on its dense engine. Called under the device lock."""
+        res = self._engine.preempt(snapshot, pods, victims, k_cap=k_cap)
+        if res is None:
+            if self._dense_engine is None:
+                self._dense_engine = engine.TorchEngine(device=self.device)
+            res = self._dense_engine.preempt(snapshot, pods, victims, k_cap=k_cap)
+        return res
+
     def preempt(self, request: pb.ScheduleRequest, context) -> pb.ScheduleReply:
         """Preemption pass (upstream PostFilter) on the device: pending
         preemptors + victim arrays in, (node, victims, n_victims) out —
@@ -657,10 +665,7 @@ class EngineService:
         except (ValueError, TypeError) as e:
             context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
         t0 = time.perf_counter()
-        res = self._run(
-            lambda: self._preempt_engine.preempt(snapshot, pods, victims, k_cap=k_cap),
-            None,
-        )
+        res = self._run(lambda: self._preempt(snapshot, pods, victims, k_cap), None)
         dt = time.perf_counter() - t0
         with self._lock:
             self.cycles_served += 1

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from kubernetes_scheduler_tpu_torch.device import resolve_device, to_device
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.ops.assign import (
     NEG,
     AffinityState,
@@ -1442,7 +1443,17 @@ class PendingSchedule:
         return self._result
 
 
-class TorchEngine:
+def pending_on(result, device) -> PendingSchedule:
+    """`result`'s handle; on a CUDA device it waits on an event recorded
+    after the result's launches, on the device's current stream."""
+    if device is None or device.type != "cuda":
+        return PendingSchedule(result)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return PendingSchedule(result, event)
+
+
+class TorchEngine(EngineSurface):
     """In-process engine with LocalEngine's call surface, on one device
     (default cuda; raises without CUDA unless device="cpu" is passed):
     schedule_batch / schedule_windows / their async twins, and resident
@@ -1457,8 +1468,6 @@ class TorchEngine:
         self._consts = _UniformDeviceCache(self.device)
         # retained cluster state; None until the first full resident upload
         self._resident: ResidentState | None = None
-        # did the LAST resident call fold a delta (True) or upload in full?
-        self.resident_used_delta = False
         # the host's trace id for the next call, and the outstanding
         # profile arm (the next N calls under torch.profiler)
         self._trace_id = 0
@@ -1493,23 +1502,12 @@ class TorchEngine:
         tag = "step-%08d" % self._trace_id if self._trace_id else "step-unlabeled"
         return profile_device_step(call, os.path.join(self._profile_dir, tag))
 
-    def _pending(self, result) -> PendingSchedule:
-        if self.device.type != "cuda":
-            return PendingSchedule(result)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return PendingSchedule(result, event)
-
     # ---- stateless calls -------------------------------------------------
 
     def schedule_batch(self, snapshot, pods, **kw) -> ScheduleResult:
         return self._maybe_profile(
             lambda: schedule_batch(self._consts.swap(snapshot), self._consts.swap(pods), **kw)
         )
-
-    def schedule_batch_async(self, snapshot, pods, **kw) -> PendingSchedule:
-        """schedule_batch, returning once the cycle is enqueued."""
-        return self._pending(self.schedule_batch(snapshot, pods, **kw))
 
     def schedule_windows(self, snapshot, pods_windows, **kw) -> WindowsResult:
         return self._maybe_profile(
@@ -1575,13 +1573,6 @@ class TorchEngine:
             lambda: schedule_batch(st.snapshot, self._consts.swap(pods), **kw)
         )
 
-    def schedule_resident_async(
-        self, snapshot, pods, *, delta=None, epoch=0, **kw
-    ) -> PendingSchedule:
-        return self._pending(
-            self.schedule_resident(snapshot, pods, delta=delta, epoch=epoch, **kw)
-        )
-
     def schedule_windows_resident(
         self, snapshot, pods_windows, *, delta=None, epoch=0, **kw
     ) -> WindowsResult:
@@ -1593,6 +1584,9 @@ class TorchEngine:
         return self._maybe_profile(
             lambda: schedule_windows(st.snapshot, self._consts.swap(pods_windows), **kw)
         )
+
+    def supports_fleet(self) -> bool:
+        return True
 
     def schedule_batch_fleet(self, snapshot, requests, *, delta=None, epoch=None, **kw) -> tuple:
         """Coalesced fleet dispatch: every (delta | None, pods) request
@@ -1629,9 +1623,6 @@ class TorchEngine:
             self._consts.swap(snapshot), self._consts.swap(pods),
             victims_on(victims, self.device), k_cap=k_cap,
         )
-
-    def healthy(self) -> bool:
-        return True
 
     def close(self) -> None:
         """Release the retained state and the cached device tensors."""

@@ -74,6 +74,7 @@ import time
 
 import numpy as np
 
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.host.observe import Counter, Histogram
 
 log = logging.getLogger("yoda_tpu.engine_pool")
@@ -105,8 +106,8 @@ def _wait_for_device(inner) -> None:
     CUDA device has run: one event recorded on the current stream (the
     stream the launches went to), then waited on. Nothing to wait for on
     the CPU or for an engine without a device."""
-    dev = getattr(inner, "device", None)
-    if getattr(dev, "type", None) != "cuda":
+    dev = inner.device
+    if dev is None or dev.type != "cuda":
         return
     import torch
 
@@ -148,11 +149,12 @@ class _PoolHandle:
         return self._pool._settle(self._pending)
 
 
-class _EngineView:
+class _EngineView(EngineSurface):
     """One replica's engine facade. Presents the plain (non-resident)
-    engine surface — `supports_resident()` is False by design, so the
-    Scheduler's own resident machinery stays inert and residency is
-    managed ONCE at the pool, where the fleet-wide base lives."""
+    engine surface — `supports_resident()` keeps the base's False by
+    design, so the Scheduler's own resident machinery stays inert and
+    residency is managed ONCE at the pool, where the fleet-wide base
+    lives."""
 
     def __init__(self, pool: "SharedEnginePool", name: str):
         self._pool = pool
@@ -172,24 +174,15 @@ class _EngineView:
     def preempt(self, snapshot, pods, victims, *, k_cap: int):
         return self._pool.preempt(snapshot, pods, victims, k_cap=k_cap)
 
-    def supports_resident(self) -> bool:
-        return False
-
-    def supports_windows_resident(self) -> bool:
-        return False
-
     def supports_gangs(self) -> bool:
-        inner = self._pool.inner
-        sg = getattr(inner, "supports_gangs", None)
-        return bool(sg()) if sg is not None else False
+        return self._pool.inner.supports_gangs()
 
     def supports_fused_min_max(self) -> bool:
-        # the inner engine's probe, so a shared fleet takes the same
+        # the inner engine's answer, so a shared fleet takes the same
         # min-max route as the same fleet on private engines (the
         # reference's view has no probe: its shared fleets run min-max
         # unfused, with the same decisions)
-        probe = getattr(self._pool.inner, "supports_fused_min_max", None)
-        return bool(probe()) if probe is not None else False
+        return self._pool.inner.supports_fused_min_max()
 
     def invalidate_resident(self) -> None:
         self._pool.invalidate()
@@ -199,13 +192,10 @@ class _EngineView:
         # the most recent dispatcher (coalesced groups are one device
         # call serving several trace ids — the pool's counters, not the
         # span join, are the per-replica evidence there)
-        st = getattr(self._pool.inner, "set_trace_id", None)
-        if st is not None:
-            st(trace_id, seq)
+        self._pool.inner.set_trace_id(trace_id, seq)
 
     def healthy(self) -> bool:
-        h = getattr(self._pool.inner, "healthy", None)
-        return bool(h()) if h is not None else True
+        return self._pool.inner.healthy()
 
     def close(self) -> None:
         if not self._closed:
@@ -290,9 +280,7 @@ class SharedEnginePool:
         if self._closed:
             return
         self._closed = True
-        c = getattr(self.inner, "close", None)
-        if c is not None:
-            c()
+        self.inner.close()
 
     # ---- dispatch surface --------------------------------------------
 
@@ -316,8 +304,6 @@ class SharedEnginePool:
                 self._active -= 1
 
     def dispatch_windows(self, view, snapshot, pods_windows, kw):
-        if not hasattr(self.inner, "schedule_windows"):
-            raise NotImplementedError("inner engine lacks schedule_windows")
         p = _Pending(view, "windows", snapshot, pods_windows, dict(kw))
         with self._cond:
             self._pending.append(p)
@@ -336,12 +322,10 @@ class SharedEnginePool:
         next dispatch re-syncs with a fenced full upload."""
         with self._cond:
             self._prev = None
-        inv = getattr(self.inner, "invalidate_resident", None)
-        if inv is not None:
-            try:
-                inv()
-            except Exception:
-                log.debug("inner invalidate_resident failed", exc_info=True)
+        try:
+            self.inner.invalidate_resident()
+        except Exception:
+            log.debug("inner invalidate_resident failed", exc_info=True)
 
     # ---- execution ----------------------------------------------------
 
@@ -394,9 +378,8 @@ class SharedEnginePool:
     def _resident_ok(self) -> bool:
         if not self._resident:
             return False
-        sr = getattr(self.inner, "supports_resident", None)
         try:
-            return bool(sr()) if sr is not None else False
+            return bool(self.inner.supports_resident())
         except Exception:
             return False
 
@@ -523,7 +506,7 @@ class SharedEnginePool:
                         delta=base_delta, epoch=epoch, **base_req.kw
                     )
                 ]
-            elif hasattr(inner, "schedule_batch_fleet"):
+            elif inner.supports_fleet():
                 results = list(
                     inner.schedule_batch_fleet(
                         base,
@@ -578,13 +561,7 @@ class SharedEnginePool:
             self.device_dispatches += 1
         self.hist_batch.observe(1.0)
         try:
-            swr = getattr(inner, "supports_windows_resident", None)
-            if (
-                self._resident_ok()
-                and swr is not None
-                and swr()
-                and hasattr(inner, "schedule_windows_resident")
-            ):
+            if self._resident_ok() and inner.supports_windows_resident():
                 delta, kind, nbytes = self._classify(self._prev, p.snapshot)
                 epoch = self._epoch + 1
                 p.value = inner.schedule_windows_resident(

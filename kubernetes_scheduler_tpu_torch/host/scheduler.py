@@ -374,25 +374,9 @@ class Scheduler:
             # the card by default: raises RuntimeError without CUDA
             engine = default_engine(config)
         self.engine = engine
-        # auction knobs ride only engines whose call surface takes them
-        # (TorchEngine's **kw and RemoteEngine's explicit params both do;
-        # the knobs ride the ScheduleRequest wire fields) — gating on the
-        # SIGNATURE so an engine predating the wire fields degrades to
-        # defaults instead of TypeError-ing every cycle into the scalar
-        # fallback
-        import inspect
-
-        try:
-            params = inspect.signature(self.engine.schedule_batch).parameters
-            self._engine_takes_auction_kw = "auction_price_frac" in params or any(
-                p.kind is inspect.Parameter.VAR_KEYWORD
-                for p in params.values()
-            )
-        except (TypeError, ValueError):
-            self._engine_takes_auction_kw = False
-        # deep-queue batching needs the windows surface; flips False at
+        # deep-queue batching on the windows surface; flips False at
         # runtime if a version-skewed sidecar answers UNIMPLEMENTED
-        self._engine_windows_ok = hasattr(self.engine, "schedule_windows")
+        self._engine_windows_ok = True
         self.binder = binder or RecordingBinder()
         self.evictor = evictor
         self._cycle_unsched: list[Pod] = []
@@ -703,8 +687,8 @@ class Scheduler:
         # reach the wire. Engines without one (local/sharded) get a
         # scheduler-owned breaker, and the dispatch gate below is the
         # only enforcement point.
-        eng_brk = getattr(self.engine, "breaker", None)
-        self._engine_owns_breaker = isinstance(eng_brk, CircuitBreaker)
+        eng_brk = self.engine.breaker
+        self._engine_owns_breaker = eng_brk is not None
         if self._engine_owns_breaker:
             self.engine_breaker = eng_brk.configure(
                 failure_threshold=config.breaker_failure_threshold,
@@ -746,7 +730,7 @@ class Scheduler:
             + self.ladder.collectors
             # engines owning exported collectors (RemoteEngine's
             # engine_health_failures_total) ride the host exporter too
-            + tuple(getattr(self.engine, "collectors", ()))
+            + tuple(self.engine.collectors)
         )
 
     def _on_breaker_transition(self, name: str, state: str) -> None:
@@ -775,7 +759,7 @@ class Scheduler:
             self.engine_breaker.record_failure()
         seq = self.totals["cycles"]
         self.ladder.demote("engine", reason=reason, seq=seq)
-        if getattr(self.engine, "n_shards", 0):
+        if self.engine.n_shards:
             self.ladder.demote("sharding", reason=reason, seq=seq)
 
     def _ladder_cycle_end(self, m: CycleMetrics) -> None:
@@ -819,21 +803,18 @@ class Scheduler:
         under config.profile_path (default <span_path>/profiles, else a
         tempdir), one dump per call named after the trace id it covers;
         a RemoteEngine forwards the arm to the sidecar over metadata."""
-        armer = getattr(self.engine, "arm_profile", None)
-        if armer is None:
-            return {"armed": 0, "error": "engine has no profile surface"}
         out_dir = self.config.profile_path
         if out_dir is None and self.config.span_path:
             import os
 
             out_dir = os.path.join(self.config.span_path, "profiles")
-        return armer(int(cycles), out_dir)
+        return self.engine.arm_profile(int(cycles), out_dir)
 
     def _record(self, m: CycleMetrics) -> None:
         # mesh-sharded engine: a device cycle (engine_seconds only
         # accrues after a successful force) through a sharded engine is
         # a sharded cycle, whatever dispatch surface served it
-        if m.engine_seconds > 0 and getattr(self.engine, "n_shards", 0):
+        if m.engine_seconds > 0 and self.engine.n_shards:
             m.sharded_cycles = 1
         # degradation-ladder audit: the rungs below top as this cycle
         # lands (journaled with the cycle's metrics; the same-mutation
@@ -1828,17 +1809,9 @@ class Scheduler:
                 infl.engine_trace = et
                 return infl
             t_eng = time.perf_counter()
-            submit = (
-                getattr(self.engine, "schedule_batch_async", None)
-                if use_async
-                else None
-            )
-            if submit is not None:
-                handle = submit(snapshot, pods_batch, **kw)
+            if use_async:
+                handle = self.engine.schedule_batch_async(snapshot, pods_batch, **kw)
             else:
-                # serial mode, and engines without the async surface:
-                # synchronous dispatch (the pipeline still interleaves
-                # correctly around it, with no overlap)
                 from kubernetes_scheduler_tpu_torch.engine import PendingSchedule
 
                 handle = PendingSchedule(
@@ -1879,16 +1852,14 @@ class Scheduler:
         the engine before dispatch: RemoteEngine ships them as gRPC
         metadata (sidecar spans join the host timeline on the id), a
         local engine names on-demand profile dumps with them. One
-        getattr when spans are off."""
+        attribute read when spans are off."""
         sp = self._cycle_span
         if sp is None:
             return
-        setter = getattr(self.engine, "set_trace_id", None)
-        if setter is not None:
-            setter(
-                sp.trace_id,
-                self.recorder._seq if self.recorder is not None else -1,
-            )
+        self.engine.set_trace_id(
+            sp.trace_id,
+            self.recorder._seq if self.recorder is not None else -1,
+        )
 
     def _dispatch_resident(
         self, snapshot, pods_batch, kw, *, ephemeral: bool, use_async: bool,
@@ -1908,20 +1879,16 @@ class Scheduler:
         resend) and never costs the cycle."""
         if not self.config.resident_state or ephemeral:
             return None
-        supports = getattr(self.engine, "supports_resident", None)
-        if supports is None or not supports():
+        if not self.engine.supports_resident():
             return None
         delta, epoch, saved = self._derive_resident_delta(
             snapshot, tctx, mirror_delta=mirror_delta
         )
         t_eng = time.perf_counter()
-        submit = (
-            getattr(self.engine, "schedule_resident_async", None)
-            if use_async
-            else None
-        )
-        if submit is not None:
-            handle = submit(snapshot, pods_batch, delta=delta, epoch=epoch, **kw)
+        if use_async:
+            handle = self.engine.schedule_resident_async(
+                snapshot, pods_batch, delta=delta, epoch=epoch, **kw
+            )
         else:
             from kubernetes_scheduler_tpu_torch.engine import PendingSchedule
 
@@ -1952,12 +1919,10 @@ class Scheduler:
             )
         self._resident_ok = False
         self._resident_prev = None
-        inval = getattr(self.engine, "invalidate_resident", None)
-        if inval is not None:
-            try:
-                inval()
-            except Exception:
-                log.debug("engine invalidate_resident failed", exc_info=True)
+        try:
+            self.engine.invalidate_resident()
+        except Exception:
+            log.debug("engine invalidate_resident failed", exc_info=True)
 
     def _complete_window(
         self, infl: _InFlight, window, nodes, m: CycleMetrics,
@@ -2239,9 +2204,7 @@ class Scheduler:
         # the half-open recovery probe the next cycle's schedule
         # dispatch is entitled to — while the breaker is anything but
         # closed, the pass runs in-host outright
-        if hasattr(self.engine, "preempt") and (
-            self.engine_breaker.state() == "closed"
-        ):
+        if self.engine_breaker.state() == "closed":
             try:
                 res = self.engine.preempt(snapshot, pend, victims, k_cap=k_cap)
             except NotImplementedError:
@@ -2717,8 +2680,9 @@ class Scheduler:
         # the fused kernels' domain (engine.check_fused_contract with
         # min_max_ok): "none" masked-raw, or "min_max" via the kernel's
         # normalize epilogue — which puts the DEPLOYED DEFAULT
-        # (normalizer="min_max") on the fused path on engines whose
-        # capability probe says so (_fused_min_max_ok); softmax stays
+        # (normalizer="min_max") on the fused path on engines that
+        # answer supports_fused_min_max() (TorchEngine on every device:
+        # K1 runs the min-max epilogue with K2's bounds); softmax stays
         # unfused
         fused = (
             self.config.feature_gates.fused_kernel
@@ -2728,7 +2692,7 @@ class Scheduler:
                 self.config.normalizer == "none"
                 or (
                     self.config.normalizer == "min_max"
-                    and self._fused_min_max_ok()
+                    and self.engine.supports_fused_min_max()
                 )
             )
         )
@@ -2747,11 +2711,10 @@ class Scheduler:
             # remote degrades loud (TypeError -> scalar fallback) rather
             # than silently scoring single-policy
             kw["score_plugins"] = score_plugins
-        if self._engine_takes_auction_kw:
-            kw.update(
-                auction_rounds=self.config.auction_rounds,
-                auction_price_frac=self.config.auction_price_frac,
-            )
+        kw.update(
+            auction_rounds=self.config.auction_rounds,
+            auction_price_frac=self.config.auction_price_frac,
+        )
         return kw
 
     def _ladder_kernel(self, fused: bool) -> None:
@@ -2858,10 +2821,7 @@ class Scheduler:
         resident = (
             self.config.resident_state
             and not ephemeral
-            and bool(
-                getattr(self.engine, "supports_windows_resident", None)
-                and self.engine.supports_windows_resident()
-            )
+            and bool(self.engine.supports_windows_resident())
         )
         if not resident:
             t_eng = time.perf_counter()
@@ -2932,9 +2892,7 @@ class Scheduler:
         path actually served it (delta applied vs degraded to full) —
         the ONE implementation both resident surfaces and the pipelined
         completion stage use."""
-        used_delta = delta_sent and bool(
-            getattr(self.engine, "resident_used_delta", False)
-        )
+        used_delta = delta_sent and bool(self.engine.resident_used_delta)
         if used_delta:
             m.delta_uploads += 1
             m.delta_bytes_saved += saved
@@ -2950,8 +2908,8 @@ class Scheduler:
         # cycle's delta actually reached, read AFTER the force like
         # resident_used_delta (the 1-deep pipeline completes a cycle
         # before the next dispatch overwrites the engine's attributes)
-        if used_delta and getattr(self.engine, "n_shards", 0):
-            per_shard = getattr(self.engine, "shard_delta_bytes", ())
+        if used_delta and self.engine.n_shards:
+            per_shard = self.engine.shard_delta_bytes
             if per_shard:
                 m.shard_delta_bytes = tuple(int(b) for b in per_shard)
 
@@ -2969,7 +2927,7 @@ class Scheduler:
                 return
         p_real = len(window)
         bind_many = getattr(self.binder, "bind_many", None)
-        if bind_many is None or p_real < 256:
+        if bind_many is None:
             for i, pod in enumerate(window):
                 j = int(idx[i])
                 if j >= 0:
@@ -2992,16 +2950,6 @@ class Scheduler:
         if self._nominations:
             for pod in assigned:
                 self._nominations.pop(_pod_key(pod), None)
-
-    def _fused_min_max_ok(self) -> bool:
-        """Whether the min_max->fused widening applies for THIS engine:
-        the engine's supports_fused_min_max() capability probe
-        (TorchEngine: True on every device, K1 runs the min-max epilogue
-        with K2's bounds). Engines without the probe keep the unfused
-        min_max path. normalizer="none" configurations are fused either
-        way."""
-        probe = getattr(self.engine, "supports_fused_min_max", None)
-        return bool(probe()) if probe is not None else False
 
     def _run_batched(
         self, window, nodes, running, utils, m: CycleMetrics,

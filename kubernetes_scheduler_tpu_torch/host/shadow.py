@@ -249,9 +249,7 @@ class ShadowScheduler:
 
             windows = stack_windows(pods, batch_window)
             res = self.engine.schedule_windows(snapshot, windows, **kw)
-        elif self.mode == "pipelined" and hasattr(
-            self.engine, "schedule_batch_async"
-        ):
+        elif self.mode == "pipelined":
             res = self.engine.schedule_batch_async(snapshot, pods, **kw).result()
         else:
             res = self.engine.schedule_batch(snapshot, pods, **kw)

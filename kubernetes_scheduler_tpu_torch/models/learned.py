@@ -50,6 +50,7 @@ from kubernetes_scheduler_tpu_torch.engine import (
     normalize_scores,
     run_windows_scan,
 )
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.ops.stats import CPU_DIVISOR, DISK_IO_DIVISOR
 
 POD_FEATURES = 6
@@ -398,7 +399,7 @@ def restore_checkpoint(path: str, like: TrainState) -> TrainState:
     return TrainState(like.params, saved["opt_state"], int(saved["step"]))
 
 
-class LearnedEngine:
+class LearnedEngine(EngineSurface):
     """TorchEngine-compatible engine scoring with the two-tower model, on
     one device (cuda by default; RuntimeError without it).
 
@@ -492,9 +493,6 @@ class LearnedEngine:
         return run_windows_scan(
             self._consts.swap(snapshot), self._consts.swap(pods_windows), cycle
         )
-
-    def healthy(self) -> bool:
-        return True
 
     def close(self) -> None:
         self._consts = _UniformDeviceCache(self.device)

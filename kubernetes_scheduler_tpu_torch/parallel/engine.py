@@ -41,7 +41,6 @@ from kubernetes_scheduler_tpu_torch.engine import (
     POD_DTYPES,
     PRESCALED_PLUGINS,
     SNAPSHOT_DTYPES,
-    PendingSchedule,
     PodBatch,
     ScheduleResult,
     SnapshotArrays,
@@ -61,6 +60,7 @@ from kubernetes_scheduler_tpu_torch.engine import (
     match_matrix,
     snapshot_nbytes,
 )
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.ops.assign import (
     CHECK_EVERY,
     NEG,
@@ -875,7 +875,7 @@ class _ShardedResident:
         )
 
 
-class ShardedEngine:
+class ShardedEngine(EngineSurface):
     """In-process node-sharded engine with TorchEngine's call surface
     (the host scheduler's config.sharded_engine), over `mesh` (default:
     the first sharded_device_count() CUDA devices; RuntimeError without
@@ -909,8 +909,6 @@ class ShardedEngine:
         self.score_fn = score_fn
         self.device = self.mesh.lead
         self._resident: _ShardedResident | None = None
-        self.resident_used_delta = False
-        self.shard_delta_bytes: tuple = ()
 
     # ---- capability surface -------------------------------------------
 
@@ -922,15 +920,6 @@ class ShardedEngine:
         return True
 
     def supports_windows_resident(self) -> bool:
-        return True
-
-    def supports_gangs(self) -> bool:
-        return False
-
-    def supports_fused_min_max(self) -> bool:
-        return False
-
-    def healthy(self) -> bool:
         return True
 
     def close(self) -> None:
@@ -961,20 +950,10 @@ class ShardedEngine:
                                             resident_layout=resident_layout, **build)
         return make_sharded_windows_fn(self.mesh, node_axes=self.mesh.axis_names, **build)
 
-    def _pending(self, result) -> PendingSchedule:
-        if self.device.type != "cuda":
-            return PendingSchedule(result)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return PendingSchedule(result, event)
-
     # ---- plain dispatch ----------------------------------------------------
 
     def schedule_batch(self, snapshot, pods, **kw) -> ScheduleResult:
         return self._program("schedule", kw)(snapshot, pods, **self._knobs(kw))
-
-    def schedule_batch_async(self, snapshot, pods, **kw) -> PendingSchedule:
-        return self._pending(self.schedule_batch(snapshot, pods, **kw))
 
     def schedule_windows(self, snapshot, pods_windows, **kw) -> WindowsResult:
         return self._program("windows", kw)(snapshot, pods_windows, **self._knobs(kw))
@@ -1056,11 +1035,6 @@ class ShardedEngine:
                 shards, pods, layouts, **self._knobs(kw)
             )
         return self._program("schedule", kw)(shards, pods, **self._knobs(kw))
-
-    def schedule_resident_async(self, snapshot, pods, *, delta=None, epoch=0, **kw):
-        return self._pending(
-            self.schedule_resident(snapshot, pods, delta=delta, epoch=epoch, **kw)
-        )
 
     def schedule_windows_resident(self, snapshot, pods_windows, *, delta=None, epoch=0, **kw):
         """The windows program on the retained shards, on the same epoch

@@ -247,12 +247,6 @@ class FaultyEngine:
         self.inner = inner
         self._inj = injector
         self._crash_armed = False
-        # engines without the async surface must not grow one through
-        # the wrapper (the scheduler feature-probes with getattr)
-        if not hasattr(inner, "schedule_batch_async"):
-            self.schedule_batch_async = None
-        if not hasattr(inner, "schedule_resident_async"):
-            self.schedule_resident_async = None
 
     def _gate(self) -> None:
         now = self._inj.clock()
@@ -266,9 +260,7 @@ class FaultyEngine:
             # the crash window closed: the "restarted" engine lost its
             # retained resident state exactly once per crash
             self._crash_armed = False
-            inval = getattr(self.inner, "invalidate_resident", None)
-            if inval is not None:
-                inval()
+            self.inner.invalidate_resident()
         self._inj.check("engine")
 
     # -- dispatch surfaces ------------------------------------------------
@@ -313,15 +305,13 @@ class FaultyEngine:
         if self._inj.blocked("engine"):
             self._inj.check_health_observed()
             return False
-        h = getattr(self.inner, "healthy", None)
-        return bool(h(**kw)) if h is not None else True
+        return bool(self.inner.healthy(**kw))
 
     def health_info(self, **kw):
         if self._inj.blocked("engine"):
             self._inj.check_health_observed()
             return None
-        hi = getattr(self.inner, "health_info", None)
-        return hi(**kw) if hi is not None else None
+        return self.inner.health_info(**kw)
 
     def __getattr__(self, name):
         return getattr(self.inner, name)

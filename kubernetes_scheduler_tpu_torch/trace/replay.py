@@ -160,13 +160,10 @@ def _dispatch(engine, snapshot, pods, kw, *, mode, resident, state) -> np.ndarra
         if state.get("prev") is not None:
             delta = snapshot_delta(state["prev"], snapshot)
         epoch = state.get("epoch", 0) + 1
-        submit = (
-            getattr(engine, "schedule_resident_async", None)
-            if mode == "pipelined"
-            else None
-        )
-        if submit is not None:
-            res = submit(snapshot, pods, delta=delta, epoch=epoch, **kw).result()
+        if mode == "pipelined":
+            res = engine.schedule_resident_async(
+                snapshot, pods, delta=delta, epoch=epoch, **kw
+            ).result()
         else:
             res = engine.schedule_resident(
                 snapshot, pods, delta=delta, epoch=epoch, **kw
@@ -174,13 +171,8 @@ def _dispatch(engine, snapshot, pods, kw, *, mode, resident, state) -> np.ndarra
         state["prev"] = snapshot
         state["epoch"] = epoch
         return to_host(res.node_idx)
-    submit = (
-        getattr(engine, "schedule_batch_async", None)
-        if mode == "pipelined"
-        else None
-    )
-    if submit is not None:
-        return to_host(submit(snapshot, pods, **kw).result().node_idx)
+    if mode == "pipelined":
+        return to_host(engine.schedule_batch_async(snapshot, pods, **kw).result().node_idx)
     return to_host(engine.schedule_batch(snapshot, pods, **kw).node_idx)
 
 
@@ -188,7 +180,7 @@ def _dispatch_windows(
     engine, snapshot, pods, kw, bw: int, *, resident, state
 ) -> np.ndarray:
     windows = stack_windows(pods, bw)
-    if resident and hasattr(engine, "schedule_windows_resident"):
+    if resident and engine.supports_windows_resident():
         from kubernetes_scheduler_tpu_torch.host.snapshot import snapshot_delta
 
         delta = None

@@ -621,3 +621,71 @@ def test_torch_unreachable_engine_takes_the_scalar_path():
     finally:
         client.close()
     assert m.used_fallback and m.pods_bound == 3
+
+
+def test_torch_remote_engine_surface_answers(port_client, port_server, tmp_path):
+    """The sidecar client answers the whole engine surface: its own
+    breaker and collectors, the server's capabilities, no device and no
+    mesh of its own, a preempt and a profile arm forwarded over the wire."""
+    from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
+    from kubernetes_scheduler_tpu_torch.host.resilience import CircuitBreaker
+
+    missing = [n for n in vars(EngineSurface) if not n.startswith("_")
+               and not hasattr(port_client, n)]
+    assert not missing, missing
+    assert isinstance(port_client, EngineSurface)
+    assert isinstance(port_client.breaker, CircuitBreaker) and len(port_client.collectors) == 1
+    assert port_client.device is None and port_client.n_shards == 0
+    assert port_client.supports_resident() and port_client.supports_windows_resident()
+    assert port_client.supports_gangs() and not port_client.supports_fleet()
+    assert not port_client.supports_fused_min_max()
+    assert port_client.healthy() and port_client.health_info().status == "SERVING"
+    assert port_client.invalidate_resident() is None
+    port_client.set_trace_id(5, 1)
+    assert port_client.arm_profile(0)["forwarded_to"] == port_client.target
+    snap, pend, victims = _preempt_problem()
+    got = port_client.preempt(snap, pend, victims, k_cap=4)
+    want = TorchEngine(device="cpu").preempt(snap, pend, victims, k_cap=4)
+    np.testing.assert_array_equal(np.asarray(got.node), np.asarray(want.node))
+
+
+def test_torch_remote_backlog_degrades_per_window_on_unimplemented(port_client):
+    """A sidecar whose ScheduleWindows answers UNIMPLEMENTED: the host's
+    deep-queue cycle degrades to one ScheduleBatch per window, binds
+    every pod without the scalar fallback, and stops popping deep
+    windows."""
+    from kubernetes_scheduler_tpu_torch.host.advisor import NodeUtil, StaticAdvisor
+    from kubernetes_scheduler_tpu_torch.host.scheduler import Scheduler
+    from kubernetes_scheduler_tpu_torch.host.types import Container, Node, Pod
+    from kubernetes_scheduler_tpu_torch.utils.config import SchedulerConfig
+
+    port_client._schedule_windows = port_client._channel.unary_unary(
+        "/yodatpu.Engine/DoesNotExist",
+        request_serializer=pb.ScheduleRequest.SerializeToString,
+        response_deserializer=pb.ScheduleReply.FromString,
+    )
+    batches = []
+    real = port_client._schedule
+
+    def counting(request, timeout=None, **kw):
+        batches.append(request)
+        return real(request, timeout=timeout, **kw)
+
+    port_client._schedule = counting
+    nodes = [
+        Node(name=f"n{i}", allocatable={"cpu": 8000.0, "memory": 2**34, "pods": 110})
+        for i in range(4)
+    ]
+    utils = {n.name: NodeUtil(cpu_pct=10.0 * i, mem_pct=20.0, disk_io=5.0)
+             for i, n in enumerate(nodes)}
+    sched = Scheduler(
+        SchedulerConfig(batch_window=4, max_windows_per_cycle=3, min_device_work=0),
+        advisor=StaticAdvisor(utils), list_nodes=lambda: nodes,
+        list_running_pods=lambda: [], engine=port_client,
+    )
+    for i in range(12):
+        sched.submit(Pod(name=f"p{i}", containers=[Container(requests={"cpu": 100.0})]))
+    m = sched.run_cycle()
+    assert not m.used_fallback and m.pods_bound == 12
+    assert len(batches) == 3 and not sched._engine_windows_ok
+    assert sched._window_cap() == 4

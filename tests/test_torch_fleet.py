@@ -29,6 +29,7 @@ from kubernetes_scheduler_tpu.sim import host_gen as ref_gen
 from kubernetes_scheduler_tpu.utils import config as ref_config
 from kubernetes_scheduler_tpu_torch import TorchEngine
 from kubernetes_scheduler_tpu_torch.host.engine_pool import SharedEnginePool
+from kubernetes_scheduler_tpu_torch.host.engine_surface import EngineSurface
 from kubernetes_scheduler_tpu_torch.host.leader import (
     FileLease,
     LeaderElector,
@@ -425,7 +426,7 @@ def test_torch_fleet_shadow_divergent_candidate_is_deterministic(soak_journal):
 
 
 def test_torch_fleet_shadow_breaker_guards_wedged_candidate(soak_journal):
-    class WedgedEngine:
+    class WedgedEngine(EngineSurface):
         def schedule_windows(self, *a, **kw):
             raise RuntimeError("candidate wedged")
 
