@@ -164,6 +164,7 @@ THREAD_ROOTS: tuple[ThreadRoot, ...] = (
             "SnapshotMirror.seed",
             "SnapshotMirror.apply_node_event",
             "SnapshotMirror.apply_pod_event",
+            "SnapshotMirror.apply_pod_events",
         ),
         description=(
             "per-resource list+watch loops (nodes, pods, PDBs, "

@@ -22,17 +22,22 @@ drifted state.
 Bitwise-equality discipline (why the row math below mirrors the builder
 line for line):
 
+- a pod event only books the pod (store, running list, the node's pod
+  list) and marks its node; the rows of every marked node are
+  recomputed together in one pass (_flush_rows) before anything reads
+  a leaf: at emit, verify, a selector extension and a fault injection.
 - `requested` rows: the builder accumulates per-node contributions as a
   sequential left-fold in running-list order (np.add.at is unbuffered).
-  The mirror appends each BOUND pod's cached request-row bytes with the
-  same float32 add, and on removal recomputes the node's row from its
-  per-node pod list in the SAME order (matrix adds, then the pods-column
-  increments, then hostPort increments — the builder's phase order).
-- domain tables: raw per-(node, selector) tables take the same per-pod
-  += ops; the domain aggregation re-sums only the touched domains with
-  float64 accumulation like the builder's Python fold (f32 inputs in
-  realistic ranges sum exactly in f64 regardless of association, and
-  the verify cross-check backstops the claim).
+  The pass recomputes each marked node's row from its per-node pod list
+  in the SAME order (matrix adds, then the pods-column increments, then
+  hostPort increments — the builder's phase order), one float32
+  np.add.accumulate per group of nodes holding the same pod count.
+- domain tables: the raw per-(node, selector) tables are recounted for
+  the marked nodes from their pods (integer counts and weights, added
+  in running order); the domain aggregation re-sums each touched domain
+  once with float64 accumulation like the builder's Python fold (f32
+  inputs in realistic ranges sum exactly in f64 regardless of
+  association, and the verify cross-check backstops the claim).
 - utilization: by-value float32 writes, the same scalar cast the
   builder's batch fill applies.
 
@@ -93,6 +98,22 @@ def _pod_key(pod) -> str:
     return pod.uid or f"{pod.namespace}/{pod.name}"
 
 
+def _term_keys(pod) -> list:
+    """(term, selector key) of each preferred or anti-affinity term of a
+    running pod — the term kinds the builder's running-set intake
+    interns — memoized on the pod (specs are immutable): the bind's
+    intake check and the row pass both probe them."""
+    keys = pod.__dict__.get("_term_keys_cache")
+    if keys is None:
+        keys = [
+            (term, selector_key(term))
+            for term in pod.pod_affinity
+            if term.preferred or term.anti
+        ]
+        pod.__dict__["_term_keys_cache"] = keys
+    return keys
+
+
 class CycleTrigger:
     """The condition the event-driven host loop sleeps on
     (config.cycle_trigger="event"): queue pushes and mirror events
@@ -127,8 +148,9 @@ class SnapshotMirror:
     time. Event producers (informer hooks, the scheduler's own binds,
     ScenarioWorld, advisor coalescing) keep them current.
 
-    Emitted arrays are frozen: the first event that touches a leaf after
-    an emit copies it (copy-on-write), so journaled/retained snapshots
+    Emitted arrays are frozen: the first write to a leaf after an emit
+    (the row pass, a utilization event) copies it (copy-on-write), so
+    journaled/retained snapshots
     never mutate underfoot — the flight recorder's delta chain rule
     compares delta bases by identity and depends on this.
     """
@@ -146,8 +168,8 @@ class SnapshotMirror:
         self.verify_interval = int(verify_interval)
         self._on_dirty = on_dirty
         # re-entrant: the public event/emit surfaces hold it and the
-        # private row-math helpers re-take it around their own state
-        # mutations (self-documenting, and safe if ever called bare)
+        # private helpers re-take it around their own state mutations
+        # (self-documenting, and safe if ever called bare)
         self._lock = threading.RLock()
         self.seeded = False
         self.nodes: list = []
@@ -163,10 +185,12 @@ class SnapshotMirror:
         # a seeded list that repeats a key: a removal then also drops
         # every other copy of the pod, as a filter by identity would
         self._seed_dups = False
-        # each node's pods in running order, and their request rows as
-        # one float32 byte string in the same order
+        # each node's pods in running order
         self._by_node: dict[str, list] = {}
-        self._node_rows: dict[str, bytes] = {}
+        # the names of the nodes whose rows the next pass (_flush_rows)
+        # recomputes, and the pod events applied since the last pass
+        self._rows_dirty: set = set()
+        self._rows_events = 0
         self._flush = True
         self._flush_reason = "seed"
         self._leaves: dict[str, np.ndarray] = {}
@@ -194,9 +218,9 @@ class SnapshotMirror:
         # ship a full upload even though the mirror never rebuilt
         self._force_full_upload = False
         self._emits = 0
-        # pod events coalesced into `pod_events` burst spans
-        # (observe.PodEventBursts), set by a Scheduler with spans on;
-        # None keeps apply_pod_event untimed
+        # pod events coalesced into `pod_events` burst spans, and the
+        # row pass's `mirror_rows` spans (observe.PodEventBursts), set by
+        # a Scheduler with spans on; None keeps the mirror untimed
         self.bursts = None
         # exported beside the scheduler's collectors (SHIPPED_METRICS)
         self.ctr_events = Counter(
@@ -229,9 +253,17 @@ class SnapshotMirror:
             "Rebuilds of the running list from the mirror's store: one "
             "at the first read after pods left the running set",
         )
+        self.ctr_row_nodes = Counter(
+            "mirror_row_nodes_total",
+            "Node rows the mirror's batched row pass recomputed (the "
+            "requested row and, with selectors, the domain tables); "
+            "events_applied_total{kind=\"pod\"} over it is the events "
+            "each recomputed row absorbed",
+        )
         self.collectors = (
             self.ctr_events, self.ctr_rebuilds, self.ctr_verify_failures,
             self.ctr_extensions, self.ctr_running_rebuilds,
+            self.ctr_row_nodes,
         )
 
     # -- seeding / state -------------------------------------------------
@@ -273,8 +305,7 @@ class SnapshotMirror:
 
     def _drop_running(self, key: str):
         """Take the pod under `key` out of the running set and out of its
-        node's pods and request rows; returns it, or None when the key is
-        unknown."""
+        node's pods; returns it, or None when the key is unknown."""
         with self._lock:
             seq = self._seq_of.pop(key, None)
             if seq is None:
@@ -286,12 +317,8 @@ class SnapshotMirror:
             self._running_list = None
             lst = self._by_node.get(old.node_name)
             if lst is not None:
-                rows = self._node_rows[old.node_name]
-                w = 4 * len(self._names_t)  # a float32 row's bytes
                 for j in reversed([j for j, p in enumerate(lst) if p is old]):
                     del lst[j]
-                    rows = rows[: j * w] + rows[(j + 1) * w:]
-                self._node_rows[old.node_name] = rows
             return old
 
     def _rebuild_by_node(self) -> None:
@@ -301,11 +328,6 @@ class SnapshotMirror:
                 if p.node_name is not None:
                     by_node.setdefault(p.node_name, []).append(p)
             self._by_node = by_node
-            names_t = self._names_t
-            self._node_rows = {
-                name: b"".join([pod_request_bytes(p, names_t) for p in pods])
-                for name, pods in by_node.items()
-            }
 
     def _mark_flush(self, reason: str) -> None:
         with self._lock:
@@ -341,6 +363,11 @@ class SnapshotMirror:
             b = self.builder
             if len(b.selectors) == self._adopt_n_sel:
                 return True
+            # the marked rows first, over the table they were booked
+            # against: the fill below adds to every running pod's node
+            self._flush_rows()
+            if self._flush:
+                return False
             cur_s = int(self._leaves["domain_counts"].shape[1])
             if b._selector_slots() != cur_s:
                 return False  # bucket growth: shapes change, rebuild
@@ -371,18 +398,7 @@ class SnapshotMirror:
             for topo, sids in new_by_topo.items():
                 grp = self._topo_groups.get(topo)
                 if grp is None:
-                    labels = [
-                        nd.name
-                        if topo == "kubernetes.io/hostname"
-                        else nd.labels.get(topo, "")
-                        for nd in self.nodes
-                    ]
-                    members: dict[str, list[int]] = {}
-                    for i, lab in enumerate(labels):
-                        members.setdefault(lab, []).append(i)
-                    grp = self._topo_groups[topo] = {
-                        "labels": labels, "members": members, "sids": [],
-                    }
+                    grp = self._topo_groups[topo] = self._topo_group(topo)
                 grp["sids"].extend(sids)
                 for rows in grp["members"].values():
                     ix = np.ix_(rows, sids)
@@ -412,9 +428,9 @@ class SnapshotMirror:
     def _remap_ports(self, new_index: dict) -> None:
         """Absorb a hostPort REMAP within the existing slot budget: only
         the port-column block of `requested` means something different
-        under the new port->column table, so recompute the rows of nodes
-        hosting port pods (row-exact, the builder's phase order) instead
-        of flushing. The static block survives untouched — every port
+        under the new port->column table, so mark the nodes hosting port
+        pods for the row pass (row-exact, the builder's phase order)
+        instead of flushing. The static block survives untouched — every port
         column's capacity is the same 1.0/node and the column NAMES are
         slot-generic (hostport/<i>), so neither alloc nor the resource-
         name tuple moves. Slot GROWTH still flushes (every width in the
@@ -423,9 +439,7 @@ class SnapshotMirror:
             self._adopt_ports = dict(new_index)
             for name, pods_on in self._by_node.items():
                 if any(p.host_ports for p in pods_on):
-                    i = self._node_index.get(name)
-                    if i is not None:
-                        self._recompute_requested_row(i, name)
+                    self._rows_dirty.add(name)
             self.ctr_extensions.inc(kind="port-remap")
 
     def _notify(self) -> None:
@@ -459,25 +473,42 @@ class SnapshotMirror:
         """A running-set change: BOUND/ADDED/MODIFIED adds or replaces
         the pod, DELETED removes it. Dedup is by scheduling key AND
         object identity, so the scheduler's own post-bind self-apply and
-        the informer's later echo of the same Pod object coalesce. With
-        `bursts` set, each event is timed from the call, the wait for the
-        mirror's lock included, to the update's end."""
+        the informer's later echo of the same Pod object coalesce. The
+        event books the pod and marks its node; the node's rows are
+        recomputed by the next row pass. With `bursts` set, each event
+        is timed from the call, the wait for the mirror's lock included,
+        to the update's end."""
+        self.apply_pod_events(etype, (pod,))
+
+    def apply_pod_events(self, etype: str, pods) -> None:
+        """apply_pod_event for each of `pods`, in order, under one hold
+        of the lock: one events_applied_total increment, one
+        `pod_events` burst (its `events` the pods) and one notify for
+        the batch (the cycle's self-apply of its binds)."""
+        if not pods:
+            return
         bursts = self.bursts
-        if bursts is None:
-            changed = self._apply_pod_event(etype, pod)
-        else:
-            t0 = time.perf_counter()
-            with self._lock:
-                t_in = time.perf_counter()
-                changed = self._apply_pod_event(etype, pod)
-            bursts.event(t0, time.perf_counter(), t_in - t0, etype == "DELETED")
-        if changed:
+        t0 = time.perf_counter() if bursts is not None else 0.0
+        with self._lock:
+            t_in = time.perf_counter() if bursts is not None else 0.0
+            n = 0
+            for pod in pods:
+                n += self._apply_pod_event(etype, pod)
+            if n:
+                self.ctr_events.inc(n, kind="pod")
+                self._rows_events += n
+        if bursts is not None:
+            deleted = len(pods) if etype == "DELETED" else 0
+            bursts.event(t0, time.perf_counter(), t_in - t0, deleted, len(pods))
+        if n:
             self._notify()
 
     def _apply_pod_event(self, etype: str, pod) -> bool:
-        """apply_pod_event's update; False when the event changed
-        nothing (mirror not seeded, an unknown deletion, a self-apply
-        echo)."""
+        """One pod event's bookkeeping: the store, the key map, the
+        running list, the node's pods, the selector interning and
+        extension, the flush decisions, and the mark on each node whose
+        rows change. False when the event changed nothing (mirror not
+        seeded, an unknown deletion, a self-apply echo)."""
         with self._lock:
             if not self.seeded:
                 return False
@@ -486,10 +517,9 @@ class SnapshotMirror:
                 old = self._drop_running(key)
                 if old is None:
                     return False
-                self.ctr_events.inc(kind="pod")
                 if not self._flush:
                     if self._extend_selectors():
-                        self._recompute_node_rows(old.node_name)
+                        self._rows_dirty.add(old.node_name)
                     else:
                         self._mark_flush("selector-drift")
             else:
@@ -497,21 +527,20 @@ class SnapshotMirror:
                 existing = None if seq is None else self._store[seq]
                 if existing is pod:
                     return False  # self-apply echo (same object): no-op
-                self.ctr_events.inc(kind="pod")
                 if existing is not None:
                     # replace = remove + add (keeps row math exact)
                     self._drop_running(key)
                     if not self._flush:
                         if self._extend_selectors():
-                            self._recompute_node_rows(existing.node_name)
+                            self._rows_dirty.add(existing.node_name)
                         else:
                             self._mark_flush("selector-drift")
                 if pod.node_name is None:
                     return True
                 # absorb selector drift BEFORE the pod joins the running
                 # set: the extension's new-column fill scans running, and
-                # _apply_pod_add below counts this pod once against the
-                # (now grown) adopted prefix. The incoming pod's own
+                # the row pass recounts this pod's node against the (now
+                # grown) adopted prefix. The incoming pod's own
                 # pref/anti keys are minted first — the exact term kinds
                 # the builder's running-set intake interns — so a pod
                 # introducing a fresh soft-affinity selector extends
@@ -521,11 +550,8 @@ class SnapshotMirror:
                     if fl is None:
                         fl = pod_flags(pod)
                     if not fl & FLAG_PLAIN:
-                        for term in pod.pod_affinity:
-                            if (term.preferred or term.anti) and (
-                                selector_key(term)
-                                not in self.builder.selectors
-                            ):
+                        for term, sel in _term_keys(pod):
+                            if sel not in self.builder.selectors:
                                 self.builder._selector_id(term)
                         # topology-spread selectors: BOTH
                         # whenUnsatisfiable variants (DoNotSchedule
@@ -534,7 +560,7 @@ class SnapshotMirror:
                         # arriving with either variant of a fresh
                         # spread selector extends the column in place
                         # (the fill scans running before this pod joins;
-                        # _apply_pod_domains then counts it once) — an
+                        # the row pass then counts it once) — an
                         # out-of-band bind with spread constraints used
                         # to leave the selector unminted until a window
                         # used it
@@ -550,14 +576,11 @@ class SnapshotMirror:
                 if self._running_list is not None:
                     self._running_list.append(pod)
                 self._by_node.setdefault(pod.node_name, []).append(pod)
-                self._node_rows[pod.node_name] = self._node_rows.get(
-                    pod.node_name, b""
-                ) + pod_request_bytes(pod, self._names_t)
                 if not self._flush:
                     if not self._pod_compatible(pod):
                         self._mark_flush("layout-drift")
                     else:
-                        self._apply_pod_add(pod)
+                        self._rows_dirty.add(pod.node_name)
         return True
 
     def apply_util_events(self, changed: dict) -> None:
@@ -588,7 +611,7 @@ class SnapshotMirror:
                     self._util_dirty.add(i)
         self._notify()
 
-    # -- per-event row math (mirrors the builder line for line) ----------
+    # -- the row pass (mirrors the builder line for line) -----------------
 
     def _pod_compatible(self, pod) -> bool:
         """Can this running pod's contribution be applied as rows, or
@@ -608,158 +631,141 @@ class SnapshotMirror:
             pt not in self._adopt_ports for pt in pod.host_ports
         ):
             return False
-        for term in pod.pod_affinity:
-            if (term.preferred or term.anti) and (
-                selector_key(term) not in self.builder.selectors
-            ):
-                return False
-        return True
+        selectors = self.builder.selectors
+        return all(key in selectors for _, key in _term_keys(pod))
 
-    def _request_row(self, pod) -> np.ndarray:
-        return np.frombuffer(
-            pod_request_bytes(pod, self._names_t), np.float32
-        )
-
-    def _apply_pod_add(self, pod) -> None:
+    def _flush_rows(self) -> None:
+        """The one row computation: the rows of every node an event
+        marked since the last pass, recomputed together — `requested`,
+        then (with selectors) the raw domain tables and each touched
+        domain's aggregates — and added to the delta's dirty rows. Runs
+        before anything reads a leaf; a pending flush drops the marks,
+        since its rebuild recomputes every row. With `bursts` set the
+        pass is one `mirror_rows` span (args nodes, events)."""
         with self._lock:
-            i = self._node_index.get(pod.node_name)
-            if i is None:
-                return  # unknown node: contributes nothing (builder drops rows < 0)
-            row = self._request_row(pod)
-            if row[self._pods_col] != 0.0:
-                # an explicit "pods" request would interleave differently
-                # with the builder's phase order — recompute the whole row
-                self._recompute_requested_row(i, pod.node_name)
-            else:
-                req = self._writable("requested")
-                req[i, :] += row
-                req[i, self._pods_col] += 1.0
-                if pod.host_ports:
-                    pidx = self._adopt_ports  # adopt-time mapping (see _pod_compatible)
-                    for pt in pod.host_ports:
-                        req[i, self._port0 + pidx[pt]] += 1
-                self._req_dirty.add(i)
-            self._apply_pod_domains(pod, i)
+            marked = self._rows_dirty
+            if not marked:
+                return
+            self._rows_dirty = set()
+            events, self._rows_events = self._rows_events, 0
+            if self._flush:
+                return
+            bursts = self.bursts
+            t0 = time.perf_counter() if bursts is not None else 0.0
+            node_index = self._node_index
+            by_node = self._by_node
+            # unknown nodes contribute nothing (the builder drops rows < 0)
+            known = sorted(
+                (node_index[name], name) for name in marked if name in node_index
+            )
+            nodes = [(i, by_node.get(name, ())) for i, name in known]
+            if nodes:
+                self._recount_requested(nodes)
+                if self._raw is not None:
+                    self._recount_domains(nodes)
+                self.ctr_row_nodes.inc(len(nodes))
+            if bursts is not None:
+                bursts.span(
+                    "mirror_rows", t0, time.perf_counter(),
+                    nodes=len(nodes), events=events,
+                )
 
-    def _apply_pod_domains(self, pod, i: int) -> None:
-        if self._raw is None:
-            return
-        raw, raw_avoid, raw_attract, raw_avoid_w = self._raw
-        b = self.builder
-        changed = False
-        # snapshot the first adopt-count entries: the scheduler thread
-        # can mint ids concurrently (preemption-pass build_pod_batch);
-        # insertion order makes the prefix exactly the adopted table,
-        # and any later-minted id flushes via the stability guards
-        for key, sid in list(b.selectors.items())[: self._adopt_n_sel]:
-            if b._key_matches(pod, key):
-                raw[i, sid] += 1
-                changed = True
-        fl = pod.__dict__.get("_flags_cache")
-        if fl is None or not fl & FLAG_PLAIN:
-            for term in pod.pod_affinity:
-                if not (term.preferred or term.anti):
-                    continue
-                sid = b.selectors.get(selector_key(term))
-                if sid is None or sid >= self._adopt_n_sel:
-                    # minted after adopt (raced past the intake check):
-                    # the tables never saw it — flush, never index past
-                    self._mark_flush("selector-drift")
-                    return
-                if term.preferred:
-                    (raw_avoid_w if term.anti else raw_attract)[i, sid] += (
-                        term.weight
-                    )
-                elif term.anti:
-                    raw_avoid[i, sid] += 1
-                changed = True
-        if changed:
-            self._reaggregate_node(i)
+    def _recount_requested(self, nodes: list) -> None:
+        """The builder's full-rescan contribution to the `requested` row
+        of each (index, pods) node, in its phase order: matrix adds for
+        every pod on the node (running-list order), then the pods-column
+        increments, then hostPorts. The first two phases are one float32
+        np.add.accumulate down a zero row, the node's request rows and a
+        1 in the pods column per pod: a left fold, as the builder's
+        np.add.at is, so the row is bitwise the builder's at any pods per
+        node. Nodes holding the same pod count fold as one array."""
+        with self._lock:
+            req = self._writable("requested")
+            r = req.shape[1]
+            names_t = self._names_t
+            by_count: dict[int, list] = {}
+            for node in nodes:
+                by_count.setdefault(len(node[1]), []).append(node)
+            for k, grp in by_count.items():
+                fold = np.zeros((len(grp), 2 * k + 1, r), np.float32)
+                if k:
+                    fold[:, 1 : k + 1] = np.frombuffer(
+                        b"".join([
+                            pod_request_bytes(p, names_t)
+                            for _, pods in grp for p in pods
+                        ]),
+                        np.float32,
+                    ).reshape(len(grp), k, r)
+                    fold[:, k + 1 :, self._pods_col] = 1.0
+                req[[i for i, _ in grp]] = np.add.accumulate(fold, axis=1)[:, -1]
+            pidx = self._adopt_ports  # adopt-time mapping (see _pod_compatible)
+            if pidx:  # no port columns: no pod here holds a port
+                for i, pods in nodes:
+                    for pod in pods:
+                        for pt in pod.host_ports:
+                            req[i, self._port0 + pidx[pt]] += 1
+            self._req_dirty.update(i for i, _ in nodes)
 
-    def _recompute_node_rows(self, name: str | None) -> None:
-        if name is None:
-            return
-        i = self._node_index.get(name)
-        if i is None:
-            return
-        self._recompute_requested_row(i, name)
-        if self._raw is not None:
-            raw, raw_avoid, raw_attract, raw_avoid_w = self._raw
-            raw[i, :] = 0.0
-            raw_avoid[i, :] = 0.0
-            raw_attract[i, :] = 0.0
-            raw_avoid_w[i, :] = 0.0
+    def _recount_domains(self, nodes: list) -> None:
+        """The raw per-(node, selector) tables of each (index, pods) node
+        recounted from its pods with the builder's own per-pod adds, in
+        running order, then the domain aggregates re-summed once per
+        touched domain with float64 accumulation (the builder's Python
+        fold is f64 too; f32 inputs in realistic ranges sum exactly in
+        f64 under any association, and the periodic verify pass
+        backstops the equality). Where every domain is one node (the
+        hostname key) the aggregate is the row itself."""
+        with self._lock:
             b = self.builder
-            # adopt-count prefix snapshot: see _apply_pod_domains
-            table = list(b.selectors.items())[: self._adopt_n_sel]
-            for pod in self._by_node.get(name, ()):
-                for key, sid in table:
-                    if b._key_matches(pod, key):
-                        raw[i, sid] += 1
-                fl = pod.__dict__.get("_flags_cache")
-                if fl is None or not fl & FLAG_PLAIN:
-                    for term in pod.pod_affinity:
-                        if not (term.preferred or term.anti):
-                            continue
-                        sid = b.selectors.get(selector_key(term))
-                        if sid is None or sid >= self._adopt_n_sel:
+            n_sel = self._adopt_n_sel
+            # snapshot the first adopt-count entries: the scheduler
+            # thread can mint ids concurrently (preemption-pass
+            # build_pod_batch); insertion order makes the prefix exactly
+            # the adopted table, and any later-minted id flushes via the
+            # stability guards
+            table = list(b.selectors.items())[:n_sel]
+            raw, raw_avoid, raw_attract, raw_avoid_w = self._raw
+            rows = [i for i, _ in nodes]
+            for t in self._raw:
+                t[rows] = 0.0
+            for i, pods in nodes:
+                for pod in pods:
+                    for key, sid in table:
+                        if b._key_matches(pod, key):
+                            raw[i, sid] += 1
+                    fl = pod.__dict__.get("_flags_cache")
+                    if fl is not None and fl & FLAG_PLAIN:
+                        continue
+                    for term, key in _term_keys(pod):
+                        sid = b.selectors.get(key)
+                        if sid is None or sid >= n_sel:
+                            # minted after adopt (raced past the intake
+                            # check): the tables never saw it — flush,
+                            # never index past
                             self._mark_flush("selector-drift")
                             return
                         if term.preferred:
-                            (raw_avoid_w if term.anti else raw_attract)[
-                                i, sid
-                            ] += term.weight
-                        elif term.anti:
+                            (raw_avoid_w if term.anti else raw_attract)[i, sid] += (
+                                term.weight
+                            )
+                        else:
                             raw_avoid[i, sid] += 1
-            self._reaggregate_node(i)
-
-    def _recompute_requested_row(self, i: int, name: str) -> None:
-        """The builder's full-rescan contribution to one node row, in
-        its phase order: matrix adds for every pod on the node (running-
-        list order), then the pods-column increments, then hostPorts.
-        The first two phases are one float32 np.add.accumulate down a
-        zero row, the node's request rows and a 1 in the pods column per
-        pod: a left fold, as the builder's np.add.at is, so the row is
-        bitwise the builder's at any pods per node."""
-        with self._lock:
-            req = self._writable("requested")
-            pods_on = self._by_node.get(name, ())
-            k = len(pods_on)
-            fold = np.zeros((2 * k + 1, req.shape[1]), np.float32)
-            fold[1 : k + 1] = np.frombuffer(
-                self._node_rows.get(name, b""), np.float32
-            ).reshape(k, req.shape[1])
-            fold[k + 1 :, self._pods_col] = 1.0
-            req[i, :] = np.add.accumulate(fold, axis=0)[-1]
-            pidx = self._adopt_ports  # adopt-time mapping (see _pod_compatible)
-            if pidx:  # no port columns: no pod here holds a port
-                for pod in pods_on:
-                    for pt in pod.host_ports:
-                        req[i, self._port0 + pidx[pt]] += 1
-            self._req_dirty.add(i)
-
-    def _reaggregate_node(self, i: int) -> None:
-        """Re-sum the domain aggregates of every (topology, selector)
-        group node i belongs to — O(domain size x selectors sharing the
-        topology key), vectorized with float64 accumulation (the
-        builder's Python fold is f64 too; f32 inputs in realistic ranges
-        sum exactly in f64 under any association, and the periodic
-        verify pass backstops the equality)."""
-        with self._lock:
-            raw = self._raw
-            counts = self._writable("domain_counts")
-            avoid = self._writable("avoid_counts")
-            attract = self._writable("pref_attract")
-            avoid_w = self._writable("pref_avoid")
-            outs = (counts, avoid, attract, avoid_w)
+            outs = tuple(self._writable(name) for name in _DOMAIN_LEAVES)
             for grp in self._topo_groups.values():
-                d = grp["labels"][i]
-                rows = grp["members"][d]
                 sids = grp["sids"]
-                ix = np.ix_(rows, sids)
-                for table, out in zip(raw, outs):
-                    out[ix] = table[ix].sum(axis=0, dtype=np.float64)
-                self._dom_dirty.update(rows)
+                if grp["single"]:
+                    ix = np.ix_(rows, sids)
+                    for t, out in zip(self._raw, outs):
+                        out[ix] = t[ix]
+                    self._dom_dirty.update(rows)
+                    continue
+                labels, members = grp["labels"], grp["members"]
+                for d in {labels[i] for i in rows}:
+                    dom = members[d]
+                    ix = np.ix_(dom, sids)
+                    for t, out in zip(self._raw, outs):
+                        out[ix] = t[ix].sum(axis=0, dtype=np.float64)
+                    self._dom_dirty.update(dom)
 
     # -- cycle surface ---------------------------------------------------
 
@@ -772,7 +778,8 @@ class SnapshotMirror:
         max_byte_frac: float = 0.5,
     ) -> tuple[SnapshotArrays, SnapshotDelta | None, bool]:
         """One cycle's (snapshot, delta, rebuilt) in O(events since the
-        last emit). `prev` is the snapshot the engine currently retains
+        last emit): the row pass over the nodes the events marked, then
+        the leaves and their delta. `prev` is the snapshot the engine currently retains
         (Scheduler._resident_prev); the delta is non-None only when it
         is BY IDENTITY the mirror's previous emit — any invalidation,
         flush, or skipped cycle degrades to a full upload, exactly like
@@ -783,6 +790,7 @@ class SnapshotMirror:
                 raise RuntimeError("SnapshotMirror.emit before seed()")
             if not self._flush:
                 self._check_window(window, pending_all_plain)
+                self._flush_rows()
             if (
                 not self._flush
                 and self.verify_interval > 0
@@ -910,6 +918,8 @@ class SnapshotMirror:
             self._req_dirty.clear()
             self._util_dirty.clear()
             self._dom_dirty.clear()
+            self._rows_dirty = set()
+            self._rows_events = 0
             self._flush = False
             self._flush_reason = ""
             self._force_full_upload = False
@@ -922,20 +932,26 @@ class SnapshotMirror:
                 topo = key[2]
                 grp = groups.get(topo)
                 if grp is None:
-                    labels = [
-                        nd.name
-                        if topo == "kubernetes.io/hostname"
-                        else nd.labels.get(topo, "")
-                        for nd in self.nodes
-                    ]
-                    members: dict[str, list[int]] = {}
-                    for i, lab in enumerate(labels):
-                        members.setdefault(lab, []).append(i)
-                    grp = groups[topo] = {
-                        "labels": labels, "members": members, "sids": [],
-                    }
+                    grp = groups[topo] = self._topo_group(topo)
                 grp["sids"].append(sid)
             self._topo_groups = groups
+
+    def _topo_group(self, topo: str) -> dict:
+        """One topology key's partition of the nodes: each node's domain
+        label, each domain's node indices, and whether every domain is a
+        single node (the hostname key), where a domain's aggregate is
+        its one row."""
+        labels = [
+            nd.name if topo == "kubernetes.io/hostname" else nd.labels.get(topo, "")
+            for nd in self.nodes
+        ]
+        members: dict[str, list[int]] = {}
+        for i, lab in enumerate(labels):
+            members.setdefault(lab, []).append(i)
+        return {
+            "labels": labels, "members": members, "sids": [],
+            "single": len(members) == len(labels),
+        }
 
     def _writable(self, name: str) -> np.ndarray:
         """Copy-on-write: the first mutation of a leaf after an emit
@@ -988,6 +1004,9 @@ class SnapshotMirror:
         build_snapshot over the SAME state. A mismatch logs, counts, and
         flushes — this very emit then serves the rebuild, so a drifted
         mirror can never produce a decision the rebuild would not."""
+        self._flush_rows()
+        if self._flush:
+            return True  # the rebuild serves this state
         rebuilt = self.builder.build_snapshot(
             self.nodes, self.utils, self.running,
             pending_pods=window, ephemeral=True,
@@ -1031,6 +1050,7 @@ class SnapshotMirror:
         False when there is nothing to corrupt (unseeded, or a flush is
         already pending and the corruption would be rebuilt away)."""
         with self._lock:
+            self._flush_rows()
             if not self.seeded or self._flush or leaf not in self._leaves:
                 return False
             arr = self._writable(leaf)

@@ -313,6 +313,8 @@ SHIPPED_METRICS = (
     # rebuilds of the mirror's running list from its store (one at the
     # first read after pods left the running set)
     "mirror_running_rebuilds_total",
+    # node rows the mirror's batched row pass recomputed
+    "mirror_row_nodes_total",
     # mesh-sharded resident engine: routed delta payload per owning
     # shard (host labels shard index; the sharded sidecar's twin does
     # too)
@@ -572,8 +574,12 @@ class Gauge:
 # attribution row (trace/analyze.NON_ATTRIBUTED_STAGES).
 PORT_SPANS = (
     # a burst of pod events applied to the snapshot mirror
-    # (host/mirror.apply_pod_event; args events, deleted, lock_wait_s)
+    # (host/mirror.apply_pod_event / apply_pod_events; args events,
+    # deleted, lock_wait_s)
     "pod_events",
+    # the mirror's row pass over the nodes those events marked
+    # (host/mirror._flush_rows, inside `mirror_emit`; args nodes, events)
+    "mirror_rows",
     # one window of engine.schedule_windows (its schedule_batch and
     # count fold), or one direct engine.schedule_batch (args pods, window)
     "engine_window",
@@ -671,8 +677,9 @@ class PodEventBursts:
     spans: consecutive events form one burst, which ends at a cycle
     boundary (`cut`) or when the next event starts more than
     BURST_GAP_S after the last one ended. Closed bursts wait here until
-    the Scheduler drains them into the cycle SpanSet it flushes next.
-    Fed from the informer thread and the scheduling thread alike."""
+    the Scheduler drains them into the cycle SpanSet it flushes next,
+    beside the mirror's row passes (`mirror_rows`). Fed from the
+    informer thread and the scheduling thread alike."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -682,32 +689,47 @@ class PodEventBursts:
         # bursts dropped at MAX_PENDING_BURSTS since the last drain
         self._dropped = 0
 
-    def event(self, t0: float, t1: float, lock_wait: float, deleted: bool) -> None:
-        """One applied event, from its call to its return; `lock_wait`
-        of it spent waiting for the mirror's lock."""
+    def event(
+        self, t0: float, t1: float, lock_wait: float, deleted: int, events: int = 1,
+    ) -> None:
+        """`events` applied events (one call, or one batch), from the
+        call to its return, `deleted` of them deletions; `lock_wait` of
+        it spent waiting for the mirror's lock."""
         with self._lock:
             b = self._open
             if b is not None and t0 - b[1] <= BURST_GAP_S:
                 b[1] = t1
-                b[2] += 1
+                b[2] += events
                 b[3] += deleted
                 b[4] += lock_wait
                 return
             if b is not None:
                 self._close()
-            self._open = [t0, t1, 1, int(deleted), lock_wait]
+            self._open = [t0, t1, events, int(deleted), lock_wait]
+
+    def span(self, name: str, t0: float, t1: float, **args) -> None:
+        """One span of the mirror's own (its row pass), kept with the
+        closed bursts until the drain."""
+        with self._lock:
+            self._make_room()
+            self._closed.add(name, t0, t1, **args)
 
     def _close(self) -> None:
         # graftlint: disable=lock-discipline -- called only from event and cut, which hold self._lock
         b, self._open = self._open, None
-        spans = self._closed.spans
-        if len(spans) >= MAX_PENDING_BURSTS:
-            del spans[0]
-            self._dropped += 1
+        self._make_room()
+        # graftlint: disable=lock-discipline -- called only from event and cut, which hold self._lock
         self._closed.add(
             "pod_events", b[0], b[1],
             events=b[2], deleted=b[3], lock_wait_s=b[4],
         )
+
+    def _make_room(self) -> None:
+        spans = self._closed.spans
+        if len(spans) >= MAX_PENDING_BURSTS:
+            del spans[0]
+            # graftlint: disable=lock-discipline -- called only from span and _close, under self._lock
+            self._dropped += 1
 
     def cut(self) -> None:
         """A cycle boundary: close the open burst."""

@@ -1338,12 +1338,11 @@ class Scheduler:
             self.queue.mark_scheduled_many(self._cycle_bound)
             if self.mirror is not None:
                 # the assume-cache equivalent: this cycle's binds enter
-                # the mirror as pod events NOW (every loop path —
-                # device, backlog, scalar), so the next emit's delta
-                # carries their rows; a later informer echo of the SAME
-                # Pod object coalesces by identity in the mirror
-                for pod in self._cycle_bound:
-                    self.mirror.apply_pod_event("BOUND", pod)
+                # the mirror as one batch of pod events NOW (every loop
+                # path — device, backlog, scalar), so the next emit's
+                # delta carries their rows; a later informer echo of the
+                # SAME Pod object coalesces by identity in the mirror
+                self.mirror.apply_pod_events("BOUND", self._cycle_bound)
 
         # PostFilter parity: unschedulable pods may preempt strictly-
         # lower-priority running pods (ops/preempt.py). A failure here

@@ -27,7 +27,8 @@ stages (deserialize/device_step/serialize/delta_apply) nest inside
 stages (engine_window/auction/auction_round/auction_block) inside it on
 this side; they get percentiles but never attribution rows, for the same
 no-double-counting reason. So do the port's `pod_events` bursts, which
-fall between cycles or inside a cycle's residual ("other").
+fall between cycles or inside a cycle's residual ("other"), and its
+`mirror_rows` passes, inside `mirror_emit`.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ ATTRIBUTION_STAGES = (
 # reported (percentiles) but never attributed: concurrent with the
 # engine step, nested inside it (across the bridge, or the port's
 # engine_window / auction / auction_round / auction_block / card_path),
-# or between cycles (the port's pod_events bursts)
+# or between cycles (the port's pod_events bursts), or inside mirror_emit
+# (the port's mirror_rows)
 NON_ATTRIBUTED_STAGES = (
     "host_overlap",
     "deserialize",
@@ -67,6 +69,7 @@ NON_ATTRIBUTED_STAGES = (
     "device_step",
     "serialize",
     "pod_events",
+    "mirror_rows",
     "engine_window",
     "auction",
     "auction_round",

@@ -7,7 +7,10 @@ TorchEngine(device="cpu") binds the same pods to the same nodes, in the
 same order, as the reference's Scheduler on LocalEngine over a few
 cycles: both assigners, resident state, the snapshot mirror, the
 pipelined loop, gangs, preemption (the evictions are equal too) and the
-default adaptive route. Both sides run one virtual queue clock, and the
+default adaptive route. With deletions between cycles, the port's
+Scheduler binds the same pods to the same nodes with the snapshot mirror
+on (each cycle's binds self-applied as one batch, the row math deferred
+to the emit) and off. Both sides run one virtual queue clock, and the
 reference engine answers supports_fused_min_max() as TorchEngine does,
 so both take the fused min-max route (the reference's LocalEngine has no
 such probe and would run min-max unfused on the CPU).
@@ -248,3 +251,50 @@ def test_torch_host_binds_default_route_match_reference():
     got, _, port = drain("port", cfg, n_nodes=24, n_pods=48)
     assert got == want and len(got) > 48
     assert all(m.engine_seconds == 0 for m in port.metrics)
+
+
+def drain_with_deletions(cfg, *, constraints, seed, cycles=6):
+    """The port's Scheduler over `cycles` cycles of a refilled backlog on
+    one virtual queue clock; after each cycle its binds join the running
+    pods and every third running pod is deleted (through the mirror as
+    the informer's DELETED events, when it is on). Returns the bindings
+    as (pod, node) names in order, and the scheduler."""
+    nodes, advisor = port_gen.gen_host_cluster(48, seed=seed, constraints=constraints)
+    running = []
+    clock = [0.0]
+    sched = port_sched.Scheduler(
+        port_config.SchedulerConfig(**cfg), advisor=advisor,
+        list_nodes=lambda: nodes, list_running_pods=lambda: running,
+        engine=TorchEngine(device="cpu"), queue_clock=lambda: clock[0],
+    )
+    seen = 0
+    for c in range(cycles):
+        pods = port_gen.gen_host_pods(40, seed=seed + c, constraints=constraints)
+        for pod in pods:
+            pod.name = f"c{c}-{pod.name}"
+            sched.submit(pod)
+        sched.run_cycle()
+        clock[0] += 30.0
+        running.extend(bd.pod for bd in sched.binder.bindings[seen:])
+        seen = len(sched.binder.bindings)
+        for pod in running[::3]:
+            running.remove(pod)
+            if sched.mirror is not None:
+                sched.mirror.apply_pod_event("DELETED", pod)
+    return [(bd.pod.name, bd.node_name) for bd in sched.binder.bindings], sched
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["plain", "constraints"])
+def test_torch_host_mirror_binds_match_mirror_off(kind, seed):
+    # a selector bucket wide enough that the windows' selectors extend it
+    cfg = {**DEVICE, "mirror_initial_selectors": 32}
+    want, off = drain_with_deletions({**cfg, "snapshot_mirror": False},
+                                     constraints=kind == "constraints", seed=seed)
+    got, on = drain_with_deletions(cfg, constraints=kind == "constraints", seed=seed)
+    assert off.mirror is None and on.mirror is not None
+    assert got == want and len(got) > 120
+    # the mirror served every cycle after the seed
+    assert on.mirror.ctr_rebuilds.breakdown() == {("seed",): 1}
+    assert on.mirror.ctr_row_nodes.value() > 0
+    assert on.mirror.verify() and on.mirror.ctr_verify_failures.value() == 0

@@ -4,7 +4,8 @@ profiles on the span clock (host/observe.py), on the CPU.
 
 - The mirror's pod events coalesce into `pod_events` bursts: one burst
   per run of events no more than observe.BURST_GAP_S apart, cut at each
-  cycle boundary, its `events` the events applied.
+  cycle boundary, its `events` the events applied (a cycle's binds, one
+  batch, count each pod).
 - `engine_window` and `auction` spans nest inside their cycle's
   `engine_step`; the `auction_round` spans, CycleMetrics.auction_rounds,
   the `auction` spans' `rounds` and auction_rounds_total agree, on both
@@ -12,6 +13,10 @@ profiles on the span clock (host/observe.py), on the CPU.
 - With span_path unset nothing is collected, the rounds still count, and
   the engine's results are bitwise those of a call with no handle
   published.
+- The mirror's row pass is one `mirror_rows` span inside its cycle's
+  `mirror_emit`, its `nodes` summing to mirror_row_nodes_total; with
+  spans off the mirror keeps no bursts, recomputes the same rows and the
+  bindings are bitwise the same.
 - Where the snapshot holds GPU cards, each region of the card path (the
   card policy's score, the card fit) is one `card_path` span inside its
   `engine_window`; card_cells_total{stage} and CycleMetrics.card_cells
@@ -116,13 +121,14 @@ def test_torch_spans_pod_events_one_span_per_burst(tmp_path):
     path = tmp_path / "spans"
     sched, running = make_sched(str(path))
     calls = []
-    apply = sched.mirror.apply_pod_event
+    apply = sched.mirror.apply_pod_events
 
-    def counted(etype, pod):
-        calls.append(etype)
-        apply(etype, pod)
+    def counted(etype, pods):
+        # single events (apply_pod_event) come through here as well
+        calls.extend([etype] * len(pods))
+        apply(etype, pods)
 
-    sched.mirror.apply_pod_event = counted
+    sched.mirror.apply_pod_events = counted
     # 64 + 64 + 32 pods: three cycles, each followed by 20 deletions
     ms = drive(sched, running, gen_host_pods(160, seed=1), cycles=3, delete=20)
     assert [m.pods_in for m in ms] == [64, 64, 32]
@@ -253,6 +259,28 @@ def test_torch_spans_off_rounds_count_results_bitwise(tmp_path, head):
     for got in (quiet, loud):
         for a, b in zip(bare, got):
             assert torch.equal(a, b)
+
+
+def test_torch_spans_off_mirror_rows_decisions_bitwise(tmp_path):
+    path = tmp_path / "spans"
+    off, off_running = make_sched(None, constraints=True)
+    on, on_running = make_sched(str(path), constraints=True)
+    for sched, running in ((off, off_running), (on, on_running)):
+        drive(sched, running, gen_host_pods(96, seed=1, constraints=True), cycles=4, delete=8)
+    assert off.spans is None and off.mirror.bursts is None
+    assert ([(b.pod.name, b.node_name) for b in off.binder.bindings]
+            == [(b.pod.name, b.node_name) for b in on.binder.bindings])
+    rows = on.mirror.ctr_row_nodes.value()
+    assert off.mirror.ctr_row_nodes.value() == rows > 0
+    events = spans_of(on, path)
+    passes = [e for e in events if e["name"] == "mirror_rows"]
+    emits = [e for e in events if e["name"] == "mirror_emit"]
+    assert passes and sum(e["args"]["nodes"] for e in passes) == rows
+    for e in passes:
+        mine = [m for m in emits if m["args"]["trace_id"] == e["args"]["trace_id"]]
+        assert len(mine) == 1 and encloses(mine[0], e)
+    # the events after the last emit wait for a pass that never comes
+    assert 0 < sum(e["args"]["events"] for e in passes) < on.mirror.ctr_events.value(kind="pod")
 
 
 def test_torch_spans_queue_pending_count(tmp_path):
