@@ -13,10 +13,18 @@ Optional configuration keys:
 - node.cards: {"per_node": c, "healthy_share": h, and for each metric of
   CARD_METRICS a number (every card the same), a list (a choice among its
   values) or {"integers": [lo, hi]} (a whole number in [lo, hi))}.
-- pod.classes: [{"name", "share", "labels", and optionally "cpu" and
-  "memory"}]: a pod of a class carries the template's labels and the
-  class's, and the class's request where it gives one. Without classes
-  the template is the one class.
+- pod.classes: [{"name", "share", "labels", and optionally "cpu",
+  "memory" and "priority"}]: a pod of a class carries the template's
+  labels and the class's, and the class's request and priority where it
+  gives them. Without classes the template is the one class.
+- pod.priority, and a class's priority: the pod's spec.priority
+  (Pod.priority). Without it the program reads the scv/priority label, as
+  pod_priority below does.
+- init_pod: {"cpu", "memory", "labels", "priority"}: the template of the
+  running pods set-up places (and of the pods that re-create preempted
+  ones), in place of pod, in pod's init namespace. It has no classes and
+  no anti-affinity; its pods take no class draw of their own. In the
+  reference it is one more class, after pod's (init_class_index).
 """
 
 from __future__ import annotations
@@ -195,6 +203,37 @@ def pod_classes(template: dict) -> list:
         req = {"cpu": c.get("cpu", template["cpu"]), "memory": c.get("memory", template["memory"])}
         out.append((labels, pod_request(req)))
     return out
+
+
+def init_template(config: dict) -> dict | None:
+    """The configuration's init_pod (labels {} where it gives none); None
+    without init_pod."""
+    init = config.get("init_pod")
+    return None if init is None else {"labels": {}, **init}
+
+
+def init_class_index(config: dict) -> int:
+    """The class index the reference gives pods made from init_pod: one
+    after pod's classes."""
+    return len(config["pod"].get("classes") or [{}])
+
+
+def pod_priority(labels: dict, priority) -> int:
+    """The priority the program's queue gives a pod (host/queue.pod_priority):
+    spec.priority where set, else the integer scv/priority label, else 0."""
+    if priority is not None:
+        return int(priority)
+    try:
+        return int(labels.get("scv/priority", 0))
+    except (TypeError, ValueError):
+        return 0
+
+
+def class_priorities(template: dict) -> list:
+    """[spec.priority or None] of each class of pod_classes(template): the
+    class's priority, else the template's."""
+    return [c.get("priority", template.get("priority"))
+            for c in template.get("classes") or [{}]]
 
 
 def pod_request(template: dict) -> np.ndarray:

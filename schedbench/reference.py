@@ -51,6 +51,52 @@ the run by what it says:
   at the window's start (the cycle's start and the bindings of the
   cycle's earlier windows); padding rows and columns are never feasible.
 
+Under preemption (a configuration whose scheduler block sets
+"preemption": true) the reference also replays the program's evictions,
+which the harness records per cycle (victim, preemptor, the victim's
+node) and kills once the cycle has returned: the victims leave the state
+with the cycle's deletions. Each preemption (the evictions of one
+preemptor in a cycle) nominates the victims' node: its room is reserved
+for the preemptor, as the program reserves it (host/scheduler.py's
+nomination reservations, a virtual running pod of the preemptor's
+request), from the next cycle until the preemptor binds or the
+configuration's preemption_nomination_ttl_seconds have passed since the
+eviction. Reserved room counts as taken for every other pod in
+unplaced_with_room and in score_gap's available set, never for the
+preemptor itself. A cycle's own state (its start for the captured
+window and score_gap's scale, and its preemption pass) holds the
+reservations the program held in it: those whose preemptor the cycle did
+not pop. Four exact counts judge each preemption, at the state the
+program's pass saw (the cycle's end, before its kills):
+
+- victim_priority_breaks: victims whose priority is not strictly below
+  their preemptor's;
+- needless_preemptions: preemptions for a pod that was not among its
+  cycle's unschedulable pods, or for which some node had room at the
+  cycle's end (the cycle's binds and other preemptors' reservations
+  taken);
+- excess_victims: victims outside the set upstream's
+  selectVictimsOnNode (v1.22 default_preemption.go) chooses on the
+  preemption's node: every lower-priority pod removed, then each
+  reprieved, the most important first (higher priority, then the earlier
+  start time), while the preemptor still fits; none on a node where the
+  preemptor fits without them or not even with all of them gone. Pods
+  alike in priority, start time and request are interchangeable;
+- victim_node_breaks: preemptions whose node is not among the best of
+  pickOneNodeForPreemption's criteria 1-3 (after the PodDisruptionBudget
+  criterion, which no harness budget moves): the lowest highest-victim
+  priority, then the lowest sum of victim priorities, then the fewest
+  victims, each node's victims as above, over the nodes where the
+  preemptor does not fit as things stand and fits once every
+  lower-priority pod is gone, in the program's apply order (a cycle's
+  preemptions, highest priority first) without the nodes taken by the
+  cycle's earlier preemptions (the program applies one preemption a
+  node a cycle).
+
+Preemption is judged on resources (cpu, memory, pods) and card fit; a
+configuration with pod anti-affinity and preemption, or with
+anti-affinity and init_pod, is refused (policy_of).
+
 The policy is the configuration's `scheduler.policy`; any other than
 POLICIES, a `score_plugins` list or a normalizer other than min-max
 raises ValueError (policy_of), so the reference never judges by a formula
@@ -102,7 +148,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from schedbench.gen.cluster import CARD_METRICS, label_match, pod_classes
+from schedbench.gen.cluster import (
+    CARD_METRICS,
+    init_class_index,
+    init_template,
+    label_match,
+    pod_classes,
+    pod_request,
+)
 
 LIMITS_FILE = Path(__file__).resolve().parent / "limits.json"
 # rows of the [pods, nodes] score matrix handled at once
@@ -121,6 +174,8 @@ CARD_LABELS = ("scv/number", "scv/memory", "scv/clock")
 CLOCK = CARD_METRICS.index("clock")
 FREE_MEMORY = CARD_METRICS.index("free_memory")
 _GO_INT = re.compile(r"[+-]?[0-9]+")
+PREEMPTION_CHECKS = ("victim_priority_breaks", "needless_preemptions", "excess_victims",
+                     "victim_node_breaks")
 
 
 def limits(config: dict) -> dict:
@@ -133,8 +188,12 @@ def limits(config: dict) -> dict:
 
 def policy_of(config: dict) -> str:
     """The configuration's scheduler.policy, one of POLICIES; ValueError
-    for any other, and for scores that policy alone does not give."""
+    for any other, for scores that policy alone does not give, and for
+    pod anti-affinity beside preemption or init_pod."""
     sched = config.get("scheduler", {})
+    if config["pod"].get("anti_affinity") and (sched.get("preemption") is True
+                                               or config.get("init_pod") is not None):
+        raise ValueError("the reference judges preemption and init_pod without pod anti-affinity")
     policy = sched.get("policy", LIVE)
     if policy not in POLICIES:
         raise ValueError(f"the reference judges the policies {POLICIES}, not {policy!r}")
@@ -204,7 +263,8 @@ def card_scores(cards: np.ndarray, demand, fit: np.ndarray, dtype=torch.float64,
 
 class PodClasses:
     """The pods of one configuration, per class of pod.classes (the
-    template alone without them): the request, whether the template's
+    template alone without them) and, with init_pod, one class more for
+    its pods (init_class_index): the request, whether the template's
     anti-affinity selects the class in the namespace of the running pods
     the cell starts with and in that of later pods, the card demand, and
     the nodes whose cards meet it."""
@@ -214,6 +274,9 @@ class PodClasses:
         anti = t.get("anti_affinity")
         self.has_anti = anti is not None
         classes = pod_classes(t)
+        init = init_template(config)
+        if init is not None:
+            classes.append(({**init["labels"]}, pod_request(init)))
 
         def matches(labels: dict, ns: str) -> bool:
             if anti is None:
@@ -359,6 +422,9 @@ class _Run:
         pc = rec.pod_class
         self.pod_class = (np.zeros(init.shape[0], np.int64) if pc is None
                           else np.asarray(pc, np.int64))
+        if getattr(rec, "pod_from_init", None) is not None:
+            self.pod_class = np.where(rec.pod_from_init, init_class_index(rec.config),
+                                      self.pod_class)
         self.match = np.where(init, cls.match_init[self.pod_class],
                               cls.match_new[self.pod_class])
         self.req = cls.req[self.pod_class]
@@ -431,12 +497,13 @@ def _walk(rec, device, *, control: bool) -> dict:
     bound_count = np.zeros(rec.submitted, np.int64)
     out = dict(double_binds=0, lost_pods=0, unknown_nodes=0, over_capacity=0,
                anti_affinity_breaks=0, card_fit_breaks=0, unplaced_with_room=0,
-               score_gap=0.0)
+               score_gap=0.0, **dict.fromkeys(PREEMPTION_CHECKS, 0))
     ctrl = dict(score_gap=0.0)
     k1 = rec.k1
     if k1 is None:
         # no engine window was captured: nothing holds the engine's scores
         out.update(k1_score_err=float("inf"), k1_mask_errors=1)
+    pre = _Preemption(rec, j) if any(len(_evicted(c)) for c in rec.cycles) else None
     for ci, c in enumerate(rec.cycles):
         pids, nodes = c.bound_pids, c.bound_nodes
         known = nodes >= 0
@@ -445,18 +512,33 @@ def _walk(rec, device, *, control: bool) -> dict:
         np.add.at(bound_count, pids, 1)
         out["card_fit_breaks"] += int((~cls.fit[j.pod_class[pids], nodes]).sum())
         start = state.copy()
+        held = standing = []
+        if pre is not None:
+            # the reservations the program held through this cycle
+            held = pre.active(c, np.concatenate([c.bound_pids, c.unsched_pids]))
+            pre.reserve(start, held)
         if k1 is not None and ci == k1["cycle"]:
             (ctrl if control else out).update(_k1_numbers(k1, start, pids, nodes, j, control))
         state.add(nodes, j.req[pids], j.match[pids], cls.has_anti)
         out["over_capacity"] += state.over()
         out["anti_affinity_breaks"] += state.anti_breaks()
-        out["unplaced_with_room"] += _unplaced(j, c.unsched_pids, state)
+        end = state
+        if pre is not None:
+            pre.bind(pids, nodes)
+            # the reservations standing at the cycle's end
+            standing = pre.active(c)
+            if standing:
+                end = state.copy()
+                pre.reserve(end, standing)
+        out["unplaced_with_room"] += _unplaced(j, c.unsched_pids, end, pre, standing)
+        if pre is not None and len(_evicted(c)):
+            pre.judge(c, state, held, end, standing, out)
         if len(pids):
             scalar = bool(getattr(c.metrics, "used_fallback", False))
             popped = np.unique(j.pod_class[np.concatenate([pids, c.unsched_pids])])
             if not control:
                 out["score_gap"] = max(out["score_gap"], _cycle_gap(
-                    j, pids, nodes, start, state, popped, trunc=scalar and j.policy == LIVE))
+                    j, pids, nodes, start, end, popped, trunc=scalar and j.policy == LIVE))
             elif not scalar:
                 cstate = start.copy()
                 cnodes = _place_bf16(j, pids, cstate)
@@ -469,21 +551,208 @@ def _walk(rec, device, *, control: bool) -> dict:
             where = _last_node(rec, gone)
             ok = where >= 0
             state.add(where[ok], j.req[gone[ok]], j.match[gone[ok]], cls.has_anti, -1)
+            if pre is not None:
+                pre.delete(gone)
+        if pre is not None:
+            pre.nominate(c)
     if control:
         return ctrl
+    made = getattr(rec, "pod_made", None)
     out["double_binds"] = int(np.clip(bound_count - 1, 0, None).sum())
-    out["lost_pods"] = int(rec.submitted - (bound_count > 0).sum() - rec.queued_at_end)
+    out["lost_pods"] = int((rec.submitted if made is None else int(made.sum()))
+                           - (bound_count > 0).sum() - rec.queued_at_end)
     return out
 
 
-def _unplaced(j: _Run, unsched: np.ndarray, state: State) -> int:
-    """Pods a cycle left unschedulable for which a node had room at its end."""
+def _unplaced(j: _Run, unsched: np.ndarray, state: State, pre=None, standing=()) -> int:
+    """Pods a cycle left unschedulable for which a node had room at its
+    end; `state` holds the reservations `standing` ([(preemptor, node)]),
+    and a preemptor's own reservation is room for it."""
     cls = j.cls
-    count = 0
+    preemptors = {p for p, _ in standing}
+    if preemptors:
+        split = np.isin(unsched, list(preemptors))
+        count = sum(pre.room_for(int(p), state, standing).any() for p in unsched[split])
+        unsched = unsched[~split]
+    else:
+        count = 0
     for k, m, sel in _groups(j.pod_class[unsched], j.match[unsched]):
         if state.room(cls.req[k], m, cls.has_anti, cls.fit[k]).any():
             count += int(sel.sum())
-    return count
+    return int(count)
+
+
+def _evicted(c) -> np.ndarray:
+    """[e, 3] the cycle's evictions (victim, preemptor, node)."""
+    return getattr(c, "evicted", np.zeros((0, 3), np.int64))
+
+
+class _Preemption:
+    """The running set pod by pod, the program's nominations, and the four
+    checks of its preemptions (see the module's docstring)."""
+
+    def __init__(self, rec, j: _Run):
+        self.j = j
+        size = j.req.shape[0]
+        self.node_of = np.full(size, -1, np.int64)   # node of each running pod
+        prio = getattr(rec, "pod_priority", None)
+        self.prio = np.zeros(size, np.int64) if prio is None else np.asarray(prio, np.int64)
+        start = getattr(rec, "pod_start", None)
+        # a pod without a start time is the newest (upstream's nil-means-now)
+        self.start = (np.full(size, np.inf) if start is None
+                      else np.where(np.isnan(start), np.inf, start))
+        self.ttl = float(rec.effective_config["preemption_nomination_ttl_seconds"])
+        self.nominated: dict = {}                    # preemptor -> (node, expiry)
+
+    def active(self, c, skip=None) -> list:
+        """[(preemptor, node)] of the nominations unexpired at cycle c's
+        start, without those of the preemptors in `skip`."""
+        skip = set() if skip is None or not self.nominated else set(skip.tolist())
+        return [(p, n) for p, (n, expiry) in self.nominated.items()
+                if expiry > getattr(c, "m0", 0.0) and p not in skip]
+
+    def reserve(self, state: State, res: list, sign: int = 1) -> None:
+        """Each reservation's room taken on its node (sign -1: given back)."""
+        if res:
+            p, n = (np.asarray(x, np.int64) for x in zip(*res))
+            j = self.j
+            state.add(n, j.req[p], j.match[p], j.cls.has_anti, sign)
+
+    def room_for(self, p: int, state: State, res: list) -> np.ndarray:
+        """[n] bool: room for pod p in `state`, which holds the reservations
+        `res`, less p's own."""
+        j = self.j
+        mine = [r for r in res if r[0] == p]
+        if mine:
+            state = state.copy()
+            self.reserve(state, mine, -1)
+        k = j.pod_class[p]
+        return state.room(j.cls.req[k], bool(j.match[p]), j.cls.has_anti, j.cls.fit[k])
+
+    def bind(self, pids: np.ndarray, nodes: np.ndarray) -> None:
+        self.node_of[pids] = nodes
+        if self.nominated:
+            for p in pids.tolist():
+                self.nominated.pop(p, None)
+
+    def delete(self, pids: np.ndarray) -> None:
+        self.node_of[pids] = -1
+        if self.nominated:
+            for p in pids.tolist():
+                self.nominated.pop(p, None)
+
+    def nominate(self, c) -> None:
+        """Each preemption of cycle c reserves its node for its preemptor
+        from the eviction on."""
+        for p, rows, last in _preemptions(c):
+            if rows[0, 2] >= 0:
+                self.nominated[p] = (int(rows[0, 2]), float(c.evicted_at[last]) + self.ttl)
+
+    def judge(self, c, state: State, held: list, end: State, standing: list, out: dict) -> None:
+        """The four checks over cycle c's preemptions. `state` is the
+        cycle's end without reservations, `held` the reservations of the
+        program's pass, `end` the cycle's end with the reservations
+        `standing`."""
+        j = self.j
+        cls = j.cls
+        seen = state.copy()
+        self.reserve(seen, held)
+        unsched = set(c.unsched_pids.tolist())
+        alive = np.flatnonzero(self.node_of >= 0)
+        upstream: dict = {}
+        claimed: list = []
+        for p, rows, _ in _preemptions(c):
+            victims, where = rows[:, 0], rows[:, 2]
+            out["victim_priority_breaks"] += int((self.prio[victims] >= self.prio[p]).sum())
+            if p not in unsched or self.room_for(p, end, standing).any():
+                out["needless_preemptions"] += 1
+            key = (int(j.pod_class[p]), int(self.prio[p]))
+            if key not in upstream:
+                upstream[key] = self._select(seen, alive, *key)
+            up = upstream[key]
+            node = int(where[0])
+            if node < 0 or not _best(up, claimed, node):
+                out["victim_node_breaks"] += 1
+            out["excess_victims"] += self._excess(up, node, victims, where)
+            if node >= 0:
+                claimed.append(node)
+
+    def _select(self, state: State, alive: np.ndarray, k: int, prio: int) -> dict:
+        """Upstream's selectVictimsOnNode for a preemptor of class k and
+        priority `prio` on every node at `state`: {cand [n] bool (fits
+        once every lower-priority pod is gone, not as things stand, card
+        fit), maxp, sump, count [n] of the victims, ids [n, w] the
+        lower-priority pods most important first, victim [n, w] bool}."""
+        j = self.j
+        q, alloc = j.cls.req[k], state.alloc
+        n = alloc.shape[0]
+        pot = alive[self.prio[alive] < prio]
+        node = self.node_of[pot]
+        pot = pot[np.lexsort((pot, self.start[pot], -self.prio[pot], node))]
+        node = self.node_of[pot]
+        counts = np.bincount(node, minlength=n)
+        width = max(int(counts.max(initial=0)), 1)
+        first = np.cumsum(counts) - counts
+        ids = np.full((n, width), -1, np.int64)
+        ids[node, np.arange(pot.shape[0]) - first[node]] = pot
+        valid = ids >= 0
+        req = np.where(valid[..., None], j.req[np.maximum(ids, 0)], 0)
+        vprio = np.where(valid, self.prio[np.maximum(ids, 0)], 0)
+        used = state.req - req.sum(1)
+        cand = ((used + q) <= alloc).all(1) & ~((state.req + q) <= alloc).all(1) & j.cls.fit[k]
+        victim = np.zeros((n, width), bool)
+        for i in range(width):
+            back = valid[:, i] & ((used + req[:, i] + q) <= alloc).all(1)
+            used = used + np.where(back[:, None], req[:, i], 0)
+            victim[:, i] = valid[:, i] & ~back
+        return dict(cand=cand, maxp=np.where(victim, vprio, np.iinfo(np.int64).min).max(1),
+                    sump=np.where(victim, vprio, 0).sum(1), count=victim.sum(1),
+                    ids=ids, victim=victim)
+
+    def _excess(self, up: dict, node: int, victims: np.ndarray, where: np.ndarray) -> int:
+        """Victims outside upstream's set on `node`, pods alike in
+        priority, start time and request taken as interchangeable."""
+        chosen = up["ids"][node][up["victim"][node]] if node >= 0 and up["cand"][node] else []
+        free: dict = {}
+        for v in chosen:
+            free[self._key(v)] = free.get(self._key(v), 0) + 1
+        count = 0
+        for v, at in zip(victims.tolist(), where.tolist()):
+            key = self._key(v)
+            if at == node and self.node_of[v] == node and free.get(key, 0) > 0:
+                free[key] -= 1
+            else:
+                count += 1
+        return count
+
+    def _key(self, v: int) -> tuple:
+        return (int(self.prio[v]), float(self.start[v]), *self.j.req[v].tolist())
+
+
+def _preemptions(c):
+    """(preemptor, [e, 3] its evictions, index of its last) of each run of
+    one preemptor in cycle c's evictions, in the order they were made."""
+    ev = _evicted(c)
+    if not len(ev):
+        return
+    cut = np.flatnonzero(np.diff(ev[:, 1])) + 1
+    for a, b in zip(np.concatenate([[0], cut]), np.concatenate([cut, [len(ev)]])):
+        yield int(ev[a, 1]), ev[a:b], int(b - 1)
+
+
+def _best(up: dict, claimed: list, node: int) -> bool:
+    """Is `node` among the best candidates of pickOneNodeForPreemption's
+    criteria 1-3, the nodes `claimed` left out?"""
+    cand = up["cand"].copy()
+    cand[claimed] = False
+    if not cand[node]:
+        return False
+    for name in ("maxp", "sump", "count"):
+        low = up[name][cand].min()
+        if up[name][node] != low:
+            return False
+        cand &= up[name] == low
+    return True
 
 
 def _k1_numbers(k1, start: State, pids, nodes, j: _Run, control: bool) -> dict:

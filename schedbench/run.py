@@ -279,6 +279,11 @@ def _report(rec, view, log) -> None:
         f"engine_s {sum(c.metrics.engine_seconds for c in window)} "
         f"harness_s {json.dumps(stage_s, sort_keys=True)} "
         f"pool_short {rec.pool_short} queued_at_end {rec.queued_at_end}", file=sys.stderr)
+    if any(len(c.evicted) for c in rec.cycles):
+        log(f"schedbench: preemption window preemptions "
+            f"{sum(c.metrics.pods_preempted for c in window)} victims "
+            f"{sum(c.metrics.victims_evicted for c in window)} harness_evictions "
+            f"{sum(len(c.evicted) for c in window)}", file=sys.stderr)
     if view.trace is not None:
         stages: dict = {}
         for name, t0, t1 in view.trace.spans:

@@ -1,11 +1,15 @@
 """Configurations without node.cards and pod.classes draw and judge as
 they did before cards and classes existed: the node draws, the first
 2**15 diskIO draws and the reference's numbers on one fixed tiny run of
-each cell equal values taken from the harness before that change."""
+each cell equal values taken from the harness before that change. No
+configuration of the benchmark asks for preemption: none gets an
+evictor, and each runs the program under the effective configuration it
+had before the harness could play evictions out."""
 
 from __future__ import annotations
 
 import hashlib
+import json
 
 import numpy as np
 import pytest
@@ -56,4 +60,25 @@ def test_schedbench_draws_and_checks_are_pinned(name):
     finally:
         run.close()
     assert len(run.rec.cycles) == 4
-    assert reference.check(run.rec) == {**CHECK[name], "card_fit_breaks": 0}
+    assert reference.check(run.rec) == {**CHECK[name], "card_fit_breaks": 0,
+                                        **dict.fromkeys(reference.PREEMPTION_CHECKS, 0)}
+
+
+# sha256 of each configuration's effective SchedulerConfig (the JSON the
+# run logs), taken from the harness before it could pass an evictor
+EFFECTIVE = {"basic-5k": "7a611166a572f3e9", "antiaffinity-5k": "7a611166a572f3e9",
+             "gpu-5k": "c23e20be5f38d173"}
+
+
+@pytest.mark.parametrize("config", sorted(EFFECTIVE))
+def test_schedbench_configs_get_no_evictor(config):
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = tiny_cell(next(w["name"] for w in bench["workloads"] if w["config"] == config))
+    assert "preemption" not in cell.config.get("scheduler", {})
+    run = CellRun(cell.config, cell.traffic, SEED, device="cpu")
+    try:
+        assert run.sched.evictor is None and run.evictor is None
+        eff = json.dumps(run.rec.effective_config, sort_keys=True).encode()
+    finally:
+        run.close()
+    assert hashlib.sha256(eff).hexdigest()[:16] == EFFECTIVE[config]
